@@ -16,12 +16,13 @@ import time
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import jax.numpy as jnp
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from skirt_tpu.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from skirt_tpu import rng
 from skirt_tpu.constants import KPC

@@ -3,8 +3,8 @@
 Fixed TOTAL work (packets and grid), D = 1/2/4/8 x-slabs: measures
 packets/s and per-device Labs shard size.  Virtual CPU devices share
 one host, so the timing shows the decomposition's compute overhead and
-collective count, NOT ICI bandwidth — the real-pod number needs
-multi-chip hardware (ROADMAP).  Run:
+collective count, NOT interconnect bandwidth — the device number needs
+a multi-card run (ROADMAP).  Run:
 
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
     python experiments/scaling_virtual.py
@@ -24,7 +24,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from skirt_tpu import rng
 from skirt_tpu.constants import KPC
@@ -69,8 +69,8 @@ def main():
         opts = LifecycleOptions(store_absorption=True, max_scatt_events=32,
                                 deposition="sampled", quadrature_panels=16)
     elif exchange == "fused":
-        # the slab-fused engine runs the Pallas table kernel per device
-        # (interpret mode off-TPU) on a table dust system
+        # the slab-fused engine runs the fused table event per device on
+        # a table dust system
         dsys = dsys.as_table()
         opts = LifecycleOptions(
             store_absorption=True, max_scatt_events=32,

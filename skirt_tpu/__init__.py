@@ -1,6 +1,6 @@
-"""skirt_tpu — a TPU-native Monte Carlo dust radiative transfer framework.
+"""skirt_tpu — a batched Monte Carlo dust radiative transfer framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference C++/Qt/MPI code (SKIRT v7.3): batched photon-packet lifecycle
 megakernels, grid-traversal kernels over Cartesian / tree / Voronoi dust
 grids, segment-sum tallies, and pjit/shard_map multi-device scaling.

@@ -18,7 +18,7 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="skirt-tpu",
-        description="TPU-native Monte Carlo dust radiative transfer")
+        description="Batched Monte Carlo dust radiative transfer in JAX")
     parser.add_argument("ski", nargs="*",
                         help="ski file(s) or patterns to simulate")
     parser.add_argument("-o", "--output", default=".",
@@ -41,7 +41,7 @@ def main(argv=None):
                              "many GB between phases (the reference's "
                              "per-Array allocation logging analog)")
     parser.add_argument("--fast", action="store_true",
-                        help="TPU-native fast estimators where the model "
+                        help="fast estimators where the model "
                              "allows: analytic midpoint densities + sampled "
                              "absorption deposition (default: reference-"
                              "exact gridded/path estimators)")

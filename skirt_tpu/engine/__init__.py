@@ -1,2 +1,2 @@
 """The photon-packet lifecycle engine (launch / traverse / absorb / scatter
-/ peel-off) as batched TPU megakernels."""
+/ peel-off) as batched event kernels."""

@@ -1,19 +1,15 @@
-"""Fused single-event Pallas megakernel (analytic panel quadrature).
+"""Fused single-event body (analytic panel quadrature), monochromatic.
 
 ref: SKIRTcore/MonteCarloSimulation.cpp — the per-event physics chain
 simulateescapeandabsorption (:438-515), simulatepropagation (:519-537),
 peeloffscattering (:319-363), simulatescattering (:541-549).
 
-TPU re-design rationale: the XLA analytic path materializes every (N, P)
-panel intermediate in HBM — at 2^21 lanes an event costs ~40 ms spread
-over ~20 XLA kernels, nearly all HBM traffic.  This kernel holds one lane
-tile's panels in VMEM through the WHOLE event: propagation quadrature,
-absorption-deposit sampling, forced-scattering inversion, per-instrument
-peel-off quadrature, and the Henyey-Greenstein scatter all run on the one
-tile before it is written back.  Per-event HBM traffic drops to the (N,)
-packet state plus (N,) tally deposits; the remaining off-kernel work is
-the MXU binned scatter into the tally arrays (ops/binned.py) and the
-per-event threefry uniforms.
+The event is ONE pure function over the (N,) packet state: propagation
+quadrature, absorption-deposit sampling, forced-scattering inversion,
+per-instrument peel-off quadrature and the Henyey-Greenstein scatter all
+run per lane, with no cross-lane work.  It runs under jit as plain XLA,
+which fuses the whole elementwise graph; the tallies (XLA scatter-add)
+and the per-event threefry uniforms stay outside it.
 
 Supported configuration (the flagship fast path; anything else raises and
 the caller falls back to the XLA lifecycle):
@@ -21,8 +17,7 @@ the caller falls back to the XLA lifecycle):
   - uniform-spacing Cartesian grid (locate is pure arithmetic),
   - equal-panel quadrature (LifecycleOptions.quadrature_panels),
   - distant instruments (constant observer direction),
-  - sampled absorption deposition, no polarization, no continuous
-    scattering, no refill, no io_state.
+  - sampled absorption deposition, no continuous scattering, no io_state.
 """
 
 from __future__ import annotations
@@ -30,17 +25,16 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import rng
 from ..ops import binned_add
+from ..ops.backend import require_supported_platform
 from . import vector_traversal as vt
 
 _BIG = 3.4e38
 _MAX_CHAIN_AUTO = 16   # wavelength tables are compile-time where-chains up
                        # to this nlambda (free for oligo runs); beyond it
-                       # they become per-lane (R,128) inputs gathered once
+                       # they become per-lane (N,) inputs gathered once
                        # per batch (no ceiling)
 
 
@@ -55,11 +49,20 @@ def _chain_table(ell, values):
 def _expon_cutoff(u, taumax):
     """Truncated-exponential optical-depth sample (rng.expon_cutoff).
 
-    Mosaic has no expm1/log1p; the plain exp/log forms lose relative
-    precision only for taumax ~< 1e-3, where the dedicated small branch
-    (uniform*taumax, same as the reference's limit) takes over anyway."""
+    The plain exp/log forms lose relative precision only for
+    taumax ~< 1e-3, where the dedicated small branch (uniform*taumax, same
+    as the reference's limit) takes over anyway."""
     tau = -jnp.log(jnp.maximum(1.0 - u * (1.0 - jnp.exp(-taumax)), 1e-37))
     return jnp.where(taumax < 1e-4, u * taumax, jnp.minimum(tau, taumax))
+
+
+def _pick_wavelength(D, target, W):
+    """Index of the wavelength whose prefix interval of D (over axis 0)
+    holds target: the count of inclusive prefix sums <= target, clamped
+    to W - 1 (covers sum(D) = 0 and rounding at the top)."""
+    cumD = jnp.cumsum(D, axis=0)
+    return jnp.minimum(
+        jnp.sum((cumD <= target[None]).astype(jnp.int32), axis=0), W - 1)
 
 
 def _axis_span(o, d, lo, hi, tn, tf, const_d):
@@ -152,7 +155,8 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
     if ds is None or not getattr(ds, "analytic", False):
         bail("requires density_mode='analytic'")
     if getattr(ds, "table", False):
-        bail("table (gathered) densities are not supported in-kernel; "
+        bail("table (gathered) densities are not supported in the "
+             "analytic body; "
              "use the XLA panel path (fused=False)")
     if mueller is not None:
         ms = (list(mueller) if isinstance(mueller, (list, tuple))
@@ -162,8 +166,6 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
                  "(multi-component polarization runs the vector path)")
         if ms[0] is None:
             bail("polarized fused path needs a Mueller table")
-        if max(int(getattr(options, "tally_flush", 1) or 1), 1) != 1:
-            bail("polarized fused path requires tally_flush=1")
     if io_state:
         bail("io_state not supported")
     if options.continuous_scattering:
@@ -171,12 +173,12 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
     if options.store_absorption and options.deposition != "sampled":
         bail("absorption tallies require deposition='sampled'")
     if options.store_absorption:
-        # deposits need an in-kernel (arithmetic) cell id; otherwise the
+        # deposits need an in-body (arithmetic) cell id; otherwise the
         # single-mix event is cell-independent and any analytic grid's
         # bounding-box span suffices (rho is zero outside its support)
         if not (hasattr(grid, "_uniform") and all(grid._uniform)):
             bail("absorption tallies require a uniform-spacing Cartesian "
-                 "grid (in-kernel arithmetic locate); disable "
+                 "grid (in-body arithmetic locate); disable "
                  "store_absorption for other grids")
     elif not hasattr(grid, "bounding_box"):
         bail("grid must expose bounding_box()")
@@ -184,7 +186,7 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
         if hasattr(ins, "observer_distance") or not hasattr(ins, "kobs"):
             bail("requires distant (constant-direction) instruments")
     if options.refill_batches > 1:
-        # in-kernel persistent-lane relaunch: needs a gather-free sampler
+        # in-body persistent-lane relaunch: needs a closed-form sampler
         if launch_fn is not None:
             bail("refill requires the stellar launch (no launch_fn)")
         if (stellar_system is None or stellar_system.ncomp != 1
@@ -198,7 +200,7 @@ def _validate(grid, ds, instruments, options, nlambda, mueller, io_state,
 
 def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
                   want_labs, scattering_peeloff, sampler=None,
-                  hw_rng=False, lam_inputs=False):
+                  lam_inputs=False):
     H = ds.ncomp
     multi = H > 1
     geoms = [c.geometry for c in ds.components]
@@ -237,83 +239,30 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
 
     nlead = len(leaders)
 
-    def kern(*refs):
-        if hw_rng:
-            # on-core hardware PRNG: one stream per (batch, iteration, tile).
-            # Mosaic accepts at most 2 seed words, so the tile id is mixed
-            # into the first word (Weyl-style odd-constant hash).
-            seed_ref = refs[0]
-            pid_mix = pl.program_id(0) * jnp.int32(0x27D4EB2F)
-            pltpu.prng_seed(seed_ref[0] ^ pid_mix, seed_ref[1])
-        else:
-            u_ref = refs[0]
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         L_r, alive_r, ns_r, ell_r, l0_r) = refs[1:12]
-        nin = 12
-        lam_refs = None
-        if lam_inputs:
-            # per-lane wavelength properties precomputed in XLA: ell is
-            # loop-invariant (relaunched lanes keep their ell), so the
-            # per-lambda tables are gathered ONCE per batch — replaces the
-            # compile-time select chains whose cost grew linearly in
-            # nlambda (the old 64-wavelength ceiling)
-            n_lam = 3 * H if multi else 3
-            lam_refs = refs[nin:nin + n_lam]
-            nin += n_lam
-        if refill:
-            bc_r = refs[nin]
-            nin += 1
-        out = refs[nin:]
-        opx, opy, opz, odx, ody, odz, oL, oalive, ons = out[:9]
-        k = 9
-        if want_labs:
-            odepi, odepv = out[k], out[k + 1]
-            k += 2
-        otau = out[k:k + nlead]
-        ocos = out[k + nlead:k + 2 * nlead]
-        k += 2 * nlead
-        if multi:
-            # blended peel phase weights (ref: DustSystem::phase_value)
-            oph = out[k:k + nlead]
-            k += nlead
-        if refill:
-            obc, ofresh = out[k], out[k + 1]
-
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-
-        if hw_rng:
-            def uget(_i):
-                # fresh (tile, 128) draw per call; consumption order defines
-                # the stream (single-use indices, so order is irrelevant)
-                bits = pltpu.bitcast(pltpu.prng_random_bits(X.shape),
-                                     jnp.uint32)
-                # >>8 leaves 24 bits, so the int32 view is exact (Mosaic
-                # has no uint32->f32 cast)
-                u = (pltpu.bitcast(bits >> 8, jnp.int32).astype(jnp.float32)
-                     * np.float32(2.0 ** -24))
-                return jnp.clip(u, 1e-7, 1.0 - 1e-7)
-        else:
-            def uget(i):
-                return u_ref[i]
-
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        L = L_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
-        ell = ell_r[:]
-        L0 = l0_r[:]
+    def body(lanes):
+        """One event for a block of lanes: pure function over arrays."""
+        us = lanes["u"]
+        X, Y, Z, DX, DY, DZ, L, alive_i, nscatt, ell, L0 = lanes["s"]
+        alive = alive_i != 0
         Lth = L0 * inv_minred
 
+        def uget(i):
+            return us[i]
+
         if lam_inputs:
+            # per-lane wavelength properties gathered once per batch in
+            # XLA (ell is loop-invariant: relaunched lanes keep their ell)
+            # instead of select chains whose cost grows with nlambda
+            lam = lanes["lam"]
             if multi:
-                kextm_l = [lam_refs[h][:] for h in range(H)]
-                kscam_l = [lam_refs[H + h][:] for h in range(H)]
-                g_l = [lam_refs[2 * H + h][:] for h in range(H)]
+                kextm_l = list(lam[:H])
+                kscam_l = list(lam[H:2 * H])
+                g_l = list(lam[2 * H:3 * H])
                 g = g_l[0]
             else:
-                kextm_l = [lam_refs[0][:]]
-                albedo = lam_refs[1][:]
-                g = lam_refs[2][:]
+                kextm_l = [lam[0]]
+                albedo = lam[1]
+                g = lam[2]
         else:
             kextm_l = [_chain_table(ell, kextm_t[h]) for h in range(H)]
             if multi:
@@ -392,8 +341,8 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
             cell = locate(X + mid_dep * DX, Y + mid_dep * DY,
                           Z + mid_dep * DZ)
             okd = (cell >= 0) & (D > 0) & alive
-            odepi[:] = jnp.where(okd, cell * nlambda + ell, -1)
-            odepv[:] = jnp.where(okd, D, 0.0)
+            dep = [jnp.where(okd, cell * nlambda + ell, -1),
+                   jnp.where(okd, D, 0.0)]
 
         # -- scattered-luminosity update + termination ---------------------
         # (ref: dostellaremissionchunk :284-293)
@@ -443,7 +392,7 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
         # fresh chunks (Parallel.cpp:160).
         fresh = jnp.zeros(X.shape, bool)
         if refill:
-            bcount = bc_r[:]
+            bcount = lanes["bc"]
             eligible = jnp.logical_not(alive) & (bcount < K)
             xs, ys, zs = pos_fn([uget(5 + j) for j in range(nu_pos)])
             ct = 2.0 * uget(5 + nu_pos) - 1.0
@@ -460,8 +409,6 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
             bcount = bcount + eligible.astype(jnp.int32)
             fresh = eligible
             alive = alive | eligible
-            obc[:] = bcount
-            ofresh[:] = fresh.astype(jnp.int32)
 
         # -- local mixture at the interaction point (multi-component) ------
         # (ref: DustSystem::randomMixForPosition — component h selected
@@ -482,16 +429,16 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
         # -- peel-off extinction toward each observer direction ------------
         # (ref: peeloffscattering; tau by the same panel quadrature along
         # the constant kobs — lifecycle.vector_taus)
+        taus, coss, phs = [], [], []
         for j, (kx, ky, kz) in enumerate(leaders):
             if not scattering_peeloff:
-                ocos[j][:] = jnp.zeros_like(L)
-                otau[j][:] = jnp.zeros_like(L)
-                if multi:
-                    oph[j][:] = jnp.zeros_like(L)
+                coss.append(jnp.zeros_like(L))
+                taus.append(jnp.zeros_like(L))
+                phs.append(jnp.zeros_like(L))
                 continue
             cosj = (DX * np.float32(kx) + DY * np.float32(ky)
                     + DZ * np.float32(kz))
-            ocos[j][:] = cosj
+            coss.append(cosj)
             if multi:
                 ph = jnp.zeros_like(L)
                 for h in range(H):
@@ -499,8 +446,8 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
                     t_ = 1.0 + gh * gh - 2.0 * gh * cosj
                     ph = ph + w_h[h] * ((1.0 - gh) * (1.0 + gh)
                                         * jax.lax.rsqrt(t_ * t_ * t_))
-                oph[j][:] = jnp.where(w_tot > 0,
-                                      ph / jnp.maximum(w_tot, 1e-30), 0.0)
+                phs.append(jnp.where(w_tot > 0,
+                                     ph / jnp.maximum(w_tot, 1e-30), 0.0))
             pt0, pt1 = span(X, Y, Z, kx, ky, kz, const_d=True)
             pd = (pt1 - pt0) * inv_pp
             rsum = jnp.zeros_like(L)
@@ -513,7 +460,7 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
                         rsum = rsum + kextm_l[h] * rho_s(h, mx, my, mz)
                 else:
                     rsum = rsum + rho_s(0, mx, my, mz)
-            otau[j][:] = (rsum if multi else kextm * rsum) * pd
+            taus.append((rsum if multi else kextm * rsum) * pd)
 
         # -- Henyey-Greenstein scatter (ref: simulatescattering +
         # Random::direction(bfk, costheta)) --------------------------------
@@ -549,17 +496,18 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, nlambda,
         DZ = jnp.where(scat, nzd * inv_n, DZ)
         nscatt = jnp.where(scat, nscatt + 1, nscatt)
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        odx[:] = DX
-        ody[:] = DY
-        odz[:] = DZ
-        oL[:] = L
-        oalive[:] = alive.astype(jnp.int32)
-        ons[:] = nscatt
+        outs = [X, Y, Z, DX, DY, DZ, L, alive.astype(jnp.int32), nscatt]
+        if want_labs:
+            outs += dep
+        outs += taus + coss
+        if multi:
+            # blended peel phase weights (ref: DustSystem::phase_value)
+            outs += phs
+        if refill:
+            outs += [bcount, fresh.astype(jnp.int32)]
+        return tuple(outs)
 
-    return kern
+    return body
 
 
 def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
@@ -570,7 +518,7 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                          io_state: bool = False,
                          max_iterations: int | None = None):
     """Build run_batch(key, ell, L0, tallies[, launch_ctx]) -> tallies with
-    the whole scattering event fused into one Pallas kernel.
+    the whole scattering event fused into one per-lane event body.
 
     Same contract as lifecycle.make_lifecycle; raises ValueError for
     configurations outside the fused fast path (see module docstring).
@@ -585,31 +533,21 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
     np_peel = int(options.peel_panels or npanels)
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
     sampler = (stellar_system.components[0].geometry.device_sampler_xyz()
                if refill else None)
     multi = ds.ncomp > 1
     n_uniform = 5 + (sampler[0] + 2 if refill else 0) + (1 if multi else 0)
-    interpret = jax.default_backend() != "tpu"
-    # opt-in: the on-core PRNG gains only ~3% over threefry (BASELINE.md)
-    # and its stream is hardware-defined rather than counter-derived, so
-    # the threefry path stays the default
-    hw_rng = bool(options.fused_hw_rng)
-    if hw_rng and interpret:
-        raise ValueError("fused lifecycle: fused_hw_rng requires a real "
-                         "TPU backend (interpret mode lacks the on-core "
-                         "PRNG primitives)")
     # per-lane lambda properties: below the threshold the compile-time
     # select chains are free; beyond it they grow linearly in nlambda, so
     # the tables are gathered once per batch instead (ell is loop-invariant
     # even under refill) — this removed the old 64-wavelength ceiling
     lam_inputs = nlambda > _MAX_CHAIN_AUTO
-    kern = _build_kernel(grid, ds, leaders, npanels, np_peel, options,
+    body = _build_kernel(grid, ds, leaders, npanels, np_peel, options,
                          nlambda, want_labs, scattering_peeloff,
-                         sampler=sampler, hw_rng=hw_rng,
-                         lam_inputs=lam_inputs)
+                         sampler=sampler, lam_inputs=lam_inputs)
+    require_supported_platform()
     peels = [make_peel_off(grid, ds, ins) for ins in instruments]
     mix = ds.components[0].mix
     nlead = len(leaders)
@@ -645,7 +583,6 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
         return taus
 
     n_lam = (3 * ds.ncomp if multi else 3) if lam_inputs else 0
-    n_state = 11 + n_lam + (1 if refill else 0)
     if lam_inputs:
         mL3s = [float(v) for v in np.asarray(ds._mass_over_L3).ravel()]
         kextm_tab = jnp.asarray(np.asarray(ds.kappaext, np.float32)
@@ -657,34 +594,13 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
             np.asarray(ds.kappasca[0], np.float32)
             / np.maximum(np.asarray(ds.kappaext[0], np.float32), 1e-37))
 
-    def call_kernel(u, state):
-        R = state[0].shape[0]
-        tr = min(tile_rows, R)
-
-        def blk():
-            return pl.BlockSpec((tr, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-
-        out_dtypes = ([jnp.float32] * 7 + [jnp.int32] * 2
-                      + ([jnp.int32, jnp.float32] if want_labs else [])
-                      + [jnp.float32] * (2 * nlead)
-                      + ([jnp.float32] * nlead if multi else [])
-                      + ([jnp.int32, jnp.int32] if refill else []))
-        if hw_rng:
-            u_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-        else:
-            u_spec = pl.BlockSpec((n_uniform, tr, 128),
-                                  lambda i: (0, i, 0),
-                                  memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            kern,
-            grid=(R // tr,),
-            in_specs=[u_spec] + [blk() for _ in range(n_state)],
-            out_specs=tuple(blk() for _ in range(len(out_dtypes))),
-            out_shape=tuple(jax.ShapeDtypeStruct((R, 128), dt)
-                            for dt in out_dtypes),
-            interpret=interpret,
-        )(u, *state)
+    def call_kernel(us, state):
+        lanes = {"u": us, "s": state[:11]}
+        if lam_inputs:
+            lanes["lam"] = state[11:11 + n_lam]
+        if refill:
+            lanes["bc"] = state[11 + n_lam]
+        return body(lanes)
 
     def run_batch(key, ell, L0, tallies, launch_ctx=None):
         n = ell.shape[0]
@@ -715,86 +631,28 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                     tallies["instruments"][i], pos, ell, contribution, tags,
                     tau=taus0[lead_of[i]])
 
-        # -- pack the lane state into (R, 128) tiles ------------------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        state = (pack(pos[:, 0]), pack(pos[:, 1]), pack(pos[:, 2]),
-                 pack(direction[:, 0]), pack(direction[:, 1]),
-                 pack(direction[:, 2], 1.0),   # unit dir on padded lanes
-                 pack(L), pack(alive.astype(jnp.int32)),
-                 pack(jnp.zeros(n, jnp.int32)), pack(ell),
-                 pack(L0, 0.0))
+        state = (pos[:, 0], pos[:, 1], pos[:, 2],
+                 direction[:, 0], direction[:, 1], direction[:, 2],
+                 L, alive.astype(jnp.int32), jnp.zeros(n, jnp.int32), ell,
+                 L0)
         if lam_inputs:
             # loop-invariant per-lane wavelength properties (one gather
-            # per batch instead of in-kernel select chains)
+            # per batch instead of select chains)
             if multi:
-                lam = tuple(pack(kextm_tab[h, ell]) for h in range(ds.ncomp)) \
-                    + tuple(pack(kscam_tab[h, ell]) for h in range(ds.ncomp)) \
-                    + tuple(pack(g_tab[h, ell]) for h in range(ds.ncomp))
+                lam = tuple(kextm_tab[h, ell] for h in range(ds.ncomp)) \
+                    + tuple(kscam_tab[h, ell] for h in range(ds.ncomp)) \
+                    + tuple(g_tab[h, ell] for h in range(ds.ncomp))
             else:
-                lam = (pack(kextm_tab[0, ell]), pack(alb_tab[ell]),
-                       pack(g_tab[0, ell]))
+                lam = (kextm_tab[0, ell], alb_tab[ell], g_tab[0, ell])
             state = state + lam
         if refill:
-            # packet budget per lane; padded lanes start exhausted
-            state = state + (pack(jnp.ones(n, jnp.int32), K),)
-        R = state[0].shape[0]
+            state = state + (jnp.ones(n, jnp.int32),)   # packet budget
         labs = tallies.get("labs")
-
-        # -- tally-stream buffers: flush every T event iterations ---------
-        # (one detect/binned_add call per window instead of per event; the
-        # tally kernels carry a ~0.2 ms per-call floor on this TPU)
-        T = max(int(getattr(options, "tally_flush", 1) or 1), 1)
-        ell_tiled = jnp.tile(ell, T)
-        dust_tiled = jnp.tile(dust_flags, T)
-
-        def zero_bufs():
-            b = {}
-            if want_labs:
-                b["depi"] = jnp.full((T, R * 128), -1, jnp.int32)
-                b["depv"] = jnp.zeros((T, R * 128), jnp.float32)
-            if scattering_peeloff:
-                b["pos"] = jnp.zeros((T, n, 3), jnp.float32)
-                b["ns"] = jnp.zeros((T, n), jnp.int32)
-                b["con"] = jnp.zeros((T, len(peels), n), jnp.float32)
-                b["tau"] = jnp.zeros((T, nlead, n), jnp.float32)
-                if pol_mode:
-                    b["stk"] = jnp.zeros((T, len(peels), 3, n),
-                                         jnp.float32)
-            return b
-
-        def flush(ins_list, labs_c, bufs):
-            if want_labs:
-                labs_c = binned_add(labs_c, bufs["depi"].reshape(-1),
-                                    bufs["depv"].reshape(-1))
-            if scattering_peeloff:
-                pos_f = bufs["pos"].reshape(T * n, 3)
-                tags_f = {"nscatt": bufs["ns"].reshape(-1),
-                          "is_dust": dust_tiled}
-                ins_list = list(ins_list)
-                for i, peel in enumerate(peels):
-                    tg = tags_f
-                    if pol_mode:
-                        tg = dict(tags_f, stokes=tuple(
-                            bufs["stk"][:, i, c].reshape(-1)
-                            for c in range(3)))
-                    ins_list[i] = peel(
-                        ins_list[i], pos_f, ell_tiled,
-                        bufs["con"][:, i].reshape(-1), tg,
-                        tau=bufs["tau"][:, lead_of[i]].reshape(-1))
-            return ins_list, labs_c
 
         carry = {"it": jnp.int32(0), "state": state,
                  "ins": tallies["instruments"],
                  "labs": labs if labs is not None
-                 else jnp.zeros((1,), jnp.float32),
-                 "bufs": zero_bufs()}
+                 else jnp.zeros((1,), jnp.float32)}
         if pol_mode:
             # normalized Stokes ratios + reference normal (packets launch
             # unpolarized; a zero normal means "no reference yet")
@@ -803,30 +661,16 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
             carry["stv"] = jnp.zeros(n, jnp.float32)
             carry["stn"] = jnp.zeros((n, 3), jnp.float32)
 
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        def inner(st):
+        def body(st):
             kit = rng.event_key(k_cycle, st["it"])
-            if hw_rng:
-                # seed the on-core PRNG from the (batch key, iteration)
-                # fold: two key words into SMEM; the kernel adds the tile
-                # id (pl.program_id) as the third seed word
-                u = jax.lax.bitcast_convert_type(
-                    jax.random.key_data(kit).ravel()[:2], jnp.int32)
-            else:
-                u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
-                                                jnp.float32),
-                             1e-7, 1.0 - 1e-7)
-            outs = call_kernel(u, st["state"])
+            u = jnp.clip(jax.random.uniform(kit, (n_uniform, n),
+                                            jnp.float32),
+                         1e-7, 1.0 - 1e-7)
+            outs = call_kernel(list(u), st["state"])
             k = 9
-            bufs = dict(st["bufs"])
-            slot = st["it"] % T
+            labs_c = st["labs"]
             if want_labs:
-                bufs["depi"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["depi"], outs[k].reshape(-1), slot, 0)
-                bufs["depv"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["depv"], outs[k + 1].reshape(-1), slot, 0)
+                labs_c = binned_add(labs_c, outs[k], outs[k + 1])
                 k += 2
             taus = outs[k:k + nlead]
             coss = outs[k + nlead:k + 2 * nlead]
@@ -847,11 +691,9 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                 # ---- XLA-side Mueller scatter + polarized peel ----------
                 # pre-event state (the peel uses the PRE-scatter Stokes
                 # and direction, exactly like the vector path)
-                dir_old = jnp.stack([unpack(st["state"][3]),
-                                     unpack(st["state"][4]),
-                                     unpack(st["state"][5])], axis=-1)
-                alive_new = unpack(outs[7]) != 0
-                fresh_f = (unpack(fresh) != 0 if fresh is not None
+                dir_old = jnp.stack(st["state"][3:6], axis=-1)
+                alive_new = outs[7] != 0
+                fresh_f = (fresh != 0 if fresh is not None
                            else jnp.zeros(n, bool))
                 q0, u0, v0 = st["stq"], st["stu"], st["stv"]
                 nrm0_raw = st["stn"]
@@ -884,14 +726,11 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                 nd = nd / jnp.maximum(
                     jnp.linalg.norm(nd, axis=-1, keepdims=True), 1e-30)
                 scat = alive_new & jnp.logical_not(fresh_f)
-                dir_out = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                     unpack(outs[5])], axis=-1)
+                dir_out = jnp.stack(outs[3:6], axis=-1)
                 dir_fin = jnp.where(scat[:, None], nd, dir_out)
-                # repack the overridden direction into the lane state
+                # the overridden direction goes back into the lane state
                 ns_list = list(new_state)
-                ns_list[3] = pack(dir_fin[:, 0])
-                ns_list[4] = pack(dir_fin[:, 1])
-                ns_list[5] = pack(dir_fin[:, 2], 1.0)
+                ns_list[3:6] = [dir_fin[:, 0], dir_fin[:, 1], dir_fin[:, 2]]
                 new_state = tuple(ns_list)
                 pol_upd = {
                     "stq": jnp.where(scat, qn,
@@ -905,21 +744,20 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                                                nrm0_raw)),
                 }
 
+            ins = list(st["ins"])
             if scattering_peeloff:
-                pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                     unpack(outs[2])], axis=-1)
-                L_new = unpack(outs[6])
-                alive_new = unpack(outs[7]) != 0
-                ns_new = unpack(outs[8])
-                cons = []
-                stks = []
+                pos_new = jnp.stack(outs[0:3], axis=-1)
+                L_new = outs[6]
+                alive_new = outs[7] != 0
+                ns_new = outs[8]
+                tags = {"nscatt": ns_new, "is_dust": dust_flags}
                 pol_lead = {}
                 if pol_mode:
                     # per-LEADER Mueller peel, shared by every instrument
                     # with that observer direction (ref:
                     # peeloffscattering's polarized branch)
                     for j in sorted(set(lead_of)):
-                        cosa = unpack(coss[j])
+                        cosa = coss[j]
                         theta_p = jnp.arccos(jnp.clip(cosa, -1.0, 1.0))
                         kobs = jnp.broadcast_to(jnp.asarray(
                             np.asarray(leaders[j], np.float32)),
@@ -940,7 +778,8 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                                           nrm_i / jnp.maximum(nn_i, 1e-30),
                                           nrm0)
                         pol_lead[j] = (w, qh, uh, vh, nrm_i, kobs)
-                for i in range(len(peels)):
+                for i, peel in enumerate(peels):
+                    tg = tags
                     if pol_mode:
                         w, qh, uh, vh, nrm_i, kobs = pol_lead[lead_of[i]]
                         # rotate into THIS instrument's frame
@@ -959,52 +798,25 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
                             q3 = jnp.where(fresh_f, 0.0, q3)
                             u3 = jnp.where(fresh_f, 0.0, u3)
                             v3 = jnp.where(fresh_f, 0.0, v3)
-                        stks.append(jnp.stack([q3, u3, v3]))
+                        tg = dict(tags, stokes=(q3, u3, v3))
                     elif multi:
-                        # blended in-kernel (DustSystem.phase_value form)
-                        w = unpack(ows[lead_of[i]])
+                        # blended in the body (DustSystem.phase_value form)
+                        w = ows[lead_of[i]]
                     else:
-                        w = mix.phase_function(ell, unpack(coss[lead_of[i]]))
+                        w = mix.phase_function(ell, coss[lead_of[i]])
                     if fresh is not None and not pol_mode:
                         # relaunched lanes: emission peel-off (isotropic —
                         # unit direction weight), same quadrature
-                        w = jnp.where(unpack(fresh) != 0, 1.0, w)
-                    cons.append(jnp.where(alive_new, L_new * w, 0.0))
-                bufs["pos"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["pos"], pos_new, slot, 0)
-                bufs["ns"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["ns"], ns_new, slot, 0)
-                bufs["con"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["con"], jnp.stack(cons), slot, 0)
-                bufs["tau"] = jax.lax.dynamic_update_index_in_dim(
-                    bufs["tau"],
-                    jnp.stack([unpack(t) for t in taus]), slot, 0)
-                if pol_mode:
-                    bufs["stk"] = jax.lax.dynamic_update_index_in_dim(
-                        bufs["stk"], jnp.stack(stks), slot, 0)
+                        w = jnp.where(fresh != 0, 1.0, w)
+                    ins[i] = peel(ins[i], pos_new, ell,
+                                  jnp.where(alive_new, L_new * w, 0.0), tg,
+                                  tau=taus[lead_of[i]])
 
             out_c = {"it": st["it"] + 1, "state": new_state,
-                     "ins": st["ins"], "labs": st["labs"], "bufs": bufs}
+                     "ins": ins, "labs": labs_c}
             if pol_mode:
                 out_c.update(pol_upd)
             return out_c
-
-        def body(st):
-            # one flush WINDOW: T event iterations buffering their tally
-            # streams, then one unconditional flush (a lax.cond flush
-            # lowers to predicated execution on TPU — measured 4x slower)
-            if T == 1:
-                st = inner(st)
-            else:
-                # a window must not overrun the scattering-event cap:
-                # iterations past iter_cap become no-ops
-                st = jax.lax.fori_loop(
-                    0, T,
-                    lambda i, s: jax.lax.cond(s["it"] < iter_cap, inner,
-                                              lambda x: x, s),
-                    st)
-            ins, labs_c = flush(st["ins"], st["labs"], st["bufs"])
-            return dict(st, ins=list(ins), labs=labs_c, bufs=zero_bufs())
 
         def cond(st):
             go = jnp.any(st["state"][7] != 0)
@@ -1013,14 +825,10 @@ def make_fused_lifecycle(grid, dust_system, stellar_system, instruments,
             return (st["it"] < iter_cap) & go
 
         final = jax.lax.while_loop(cond, body, carry)
-        # final (partial-window) flush: unwritten slots carry zero
-        # contributions / -1 deposit bins, so flushing them is a no-op
-        ins_f, labs_f = flush(final["ins"], final["labs"], final["bufs"])
-
         out = dict(tallies)
-        out["instruments"] = ins_f
+        out["instruments"] = final["ins"]
         if labs is not None:
-            out["labs"] = labs_f
+            out["labs"] = final["labs"]
         return out
 
     return run_batch

@@ -1,12 +1,12 @@
-"""Polychromatic fused ANALYTIC megakernel: W wavelengths per lane.
+"""Polychromatic fused ANALYTIC event kernel: W wavelengths per lane.
 
-The flagship analytic kernel (engine/fused.py) is VPU-bound on the
-per-panel closed-form density evaluations (BASELINE.md roofline) — and
-those are wavelength-independent, exactly like the table path's rho
-gathers.  This kernel puts the full oligo wavelength vector on every
-lane: ONE set of panel density evaluations (propagation + per-leader
-peel quadrature) serves W wavelengths, dividing the per-packet VPU and
-tally budget by W.
+The mono analytic event (engine/fused.py) spends its arithmetic on the
+per-panel closed-form density evaluations, and those are
+wavelength-independent, exactly like the table path's rho gathers.  This
+kernel puts the full oligo wavelength vector on every lane: ONE set of
+panel density evaluations (propagation + per-leader peel quadrature)
+serves W wavelengths, dividing the per-packet density and tally work by
+W.
 
 The estimator is the defensive-mixture importance sampling of
 engine/fused_table_poly.py (see its module docstring for the math):
@@ -16,13 +16,14 @@ arithmetic in the lambda-independent cumulative column density and
 bounded by W.  Absorption deposits sample one wavelength per event
 (unbiased, one deposit stream).
 
-Everything else mirrors fused.py: whole event in VMEM, in-kernel
-persistent-lane refill from closed-form device samplers, per-leader
-peel quadrature in-kernel with XLA-side detects.
+The event body is a pure function over per-lane arrays, compiled by XLA
+(a Pallas Triton kernel of the same body was slower on the card, PERF.md).
+Persistent-lane refill from closed-form samplers and the per-leader peel
+quadrature run inside the body; detects run after it.
 
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 event chain; the
-polychromatic packet is a TPU-first estimator redesign with no
-reference counterpart.
+polychromatic packet is an estimator redesign with no reference
+counterpart.
 """
 
 from __future__ import annotations
@@ -30,12 +31,12 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import rng
 from ..ops import binned_add
-from .fused import (_expon_cutoff, _group_leaders, _make_locate, _make_span)
+from ..ops.backend import require_supported_platform
+from .fused import (_expon_cutoff, _group_leaders, _make_locate,
+                    _make_span, _pick_wavelength)
 
 
 def _validate(grid, ds, stellar_system, instruments, options, nlambda,
@@ -60,15 +61,15 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if options.store_absorption and not (hasattr(grid, "_uniform")
                                          and all(grid._uniform)):
         bail("absorption tallies require a uniform Cartesian grid "
-             "(in-kernel arithmetic locate)")
+             "(in-body arithmetic locate)")
     if nlambda > 128:
-        bail("nlambda <= 128 (per-lane wavelength vector lives in VMEM; "
-             "split wider grids into blocks of <= 128 wavelengths)")
+        bail("nlambda <= 128 (the widest lane vector validated; split "
+             "wider grids into blocks of <= 128 wavelengths)")
     if launch_fn is not None:
         # poly launch_fn contract: (key, ell0, L0 (N, W), ctx) ->
         # (pos, dir, L (W, N)); emission must be isotropic.  Refill for
-        # launch_fn lanes runs XLA-side between kernel invocations (the
-        # in-kernel relauncher samples closed-form device geometries only)
+        # launch_fn lanes runs between events, outside the body (the
+        # in-body relauncher samples closed-form device geometries only)
         pass
     elif stellar_system.ncomp != 1 or not stellar_system.is_isotropic:
         bail("requires a single isotropic stellar component")
@@ -106,15 +107,11 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
     tiny = np.float32(1e-30)
     # uniforms: u1, u2, u_dep, u_g, u_phi, u_c, u_pick (+ refill draws)
     n_uniform = 7 + (nu_pos + 2 if refill else 0)
-    # per-wavelength optical constants ride in as one (3, W, 128) input
-    # (Pallas forbids captured array constants); every per-wavelength
-    # quantity below is ONE (W, tr, 128) vector op so nlambda scales to
-    # production panchromatic widths without unrolling
-    oc_np = np.broadcast_to(
-        np.stack([np.asarray(kextm_w, np.float32),
-                  np.asarray(albedo_w, np.float32),
-                  np.asarray(g_w, np.float32)])[:, :, None],
-        (3, W, 128)).copy()
+    # per-wavelength optical constants (kext*m/L3, albedo, g): three (W,)
+    # vectors passed as inputs, so every per-wavelength quantity below is
+    # ONE (W, lanes) vector op and nlambda needs no unrolling
+    oc_np = tuple(np.asarray(v, np.float32)
+                  for v in (kextm_w, albedo_w, g_w))
 
     def rho_s(X, Y, Z):
         return geom.density_scaled_xyz(X * invL, Y * invL, Z * invL,
@@ -124,48 +121,20 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
         t = 1.0 + g * g - 2.0 * g * cosa
         return (1.0 - g) * (1.0 + g) / jnp.sqrt(t * t * t)
 
-    def cumsum_w(x):
-        """Inclusive prefix sum over the leading (W) axis via log2(W)
-        shifted adds."""
-        s = 1
-        while s < W:
-            x = x + jnp.concatenate(
-                [jnp.zeros((s,) + x.shape[1:], x.dtype), x[:-s]], axis=0)
-            s *= 2
-        return x
+    def body(oc, lanes):
+        """One event for a block of lanes: pure function over arrays.
 
-    def kern(*refs):
-        u_ref = refs[0]
-        oc_ref = refs[1]         # (3, W, 128): kext*m/L3 / albedo / g
-        L_ref = refs[2]          # (W, tr, 128)
-        l0_ref = refs[3]         # (W, tr, 128)
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         alive_r, ns_r) = refs[4:12]
-        nin = 12
-        if refill:
-            bc_r = refs[nin]
-            nin += 1
-        out = refs[nin:]
-        opx, opy, opz, odx, ody, odz, oalive, ons = out[:8]
-        oLn = out[8]             # (W, tr, 128) onward
-        oLp = out[9]             # (W, tr, 128) peel
-        k = 10
-        if want_labs:
-            odepi, odepv = out[k], out[k + 1]
-            k += 2
-        oIp = out[k:k + nlead]
-        ocos = out[k + nlead:k + 2 * nlead]
-        k += 2 * nlead
-        if refill:
-            obc, ofresh = out[k], out[k + 1]
-
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
+        oc: (kext, albedo, g), each (W, 1); lanes: per-lane arrays with
+        the lane axis last.
+        """
+        kext, alb, gw = oc
+        us = lanes["u"]
+        X, Y, Z, DX, DY, DZ, alive_i, nscatt = lanes["s"]
+        alive = alive_i != 0
+        l0 = lanes["l0"]
 
         def uget(i):
-            return u_ref[i]
+            return us[i]
 
         # -- panel quadrature of the lambda-independent column density ----
         t0, t1 = span(X, Y, Z, DX, DY, DZ)
@@ -179,25 +148,17 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
             cums.append(cum)
         I_tot = cum
 
-        kext = oc_ref[0][:, None, :]                     # (W, 1, 128)
-        alb = oc_ref[1][:, None, :]
-        gw = oc_ref[2][:, None, :]
-        wi = jax.lax.broadcasted_iota(jnp.int32, (W, 1, 128), 0)
-        tau = kext * I_tot[None]                         # (W, tr, 128)
+        wi = jax.lax.broadcasted_iota(jnp.int32, kext.shape, 0)
+        tau = kext * I_tot[None]                         # (W, lanes)
         ome = 1.0 - jnp.exp(-tau)
-        Lm = jnp.where(alive[None], L_ref[:], 0.0)
+        Lm = jnp.where(alive[None], lanes["L"], 0.0)
 
         # -- absorption deposit: one sampled wavelength per event ---------
         if want_labs:
             D = (1.0 - alb) * Lm * ome
             Dsum = jnp.sum(D, axis=0)
             target = uget(6) * Dsum
-            if W > 1:
-                cumD = cumsum_w(D)
-                wsel = jnp.sum((cumD[:W - 1] <= target[None])
-                               .astype(jnp.int32), axis=0)
-            else:
-                wsel = jnp.zeros(X.shape, jnp.int32)
+            wsel = _pick_wavelength(D, target, W)
             ohw = wi == wsel[None]
             tau_sel = jnp.sum(jnp.where(ohw, tau, 0.0), axis=0)
             kinv_sel = 1.0 / jnp.sum(jnp.where(ohw, kext, 0.0), axis=0)
@@ -211,8 +172,8 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
             cell = locate(X + mid_dep * DX, Y + mid_dep * DY,
                           Z + mid_dep * DZ)
             okd = okd & (cell >= 0)
-            odepi[:] = jnp.where(okd, cell * W + wsel, -1)
-            odepv[:] = jnp.where(okd, Dsum, 0.0)
+            dep = (jnp.where(okd, cell * W + wsel, -1),
+                   jnp.where(okd, Dsum, 0.0))
 
         Lab = alb * Lm * ome
 
@@ -269,22 +230,22 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
                                                             g_cc))
         costheta = jnp.where(small_g, 2.0 * u_g - 1.0,
                              jnp.clip(cos_hg, -1.0, 1.0))
-        HG = hg(gw, costheta[None])                      # (W, tr, 128)
+        HG = hg(gw, costheta[None])                      # (W, lanes)
         QHmix = jnp.sum(Q * HG, axis=0) * np.float32(1.0 / W)
 
         Lp = Lab * F / jnp.maximum(Qmix[None], tiny)
         Ln = Lab * F * HG / jnp.maximum(QHmix[None], tiny)
 
         past_min = nscatt >= min_scatt
-        kill = (Ln <= l0_ref[:] * inv_minred) & past_min[None]
+        kill = (Ln <= l0 * inv_minred) & past_min[None]
         Lp = jnp.where(kill, 0.0, Lp)
         Ln = jnp.where(kill, 0.0, Ln)
-        alive = alive & jnp.any(Ln > 0, axis=0) & (I_tot > tiny)
+        alive = alive & (jnp.max(Ln, axis=0) > 0) & (I_tot > tiny)
 
-        # -- persistent-lane relaunch (in-kernel, fused.py pattern) -------
+        # -- persistent-lane relaunch (in the body, fused.py pattern) ----
         fresh = jnp.zeros(X.shape, bool)
         if refill:
-            bcount = bc_r[:]
+            bcount = lanes["bc"]
             eligible = jnp.logical_not(alive) & (bcount < K)
             xs, ys, zs = pos_fn([uget(7 + j) for j in range(nu_pos)])
             ct = 2.0 * uget(7 + nu_pos) - 1.0
@@ -296,24 +257,23 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
             DX = jnp.where(eligible, st_ * jnp.cos(ph2), DX)
             DY = jnp.where(eligible, st_ * jnp.sin(ph2), DY)
             DZ = jnp.where(eligible, ct, DZ)
-            Ln = jnp.where(eligible[None], l0_ref[:], Ln)
+            Ln = jnp.where(eligible[None], l0, Ln)
             Lp = jnp.where(eligible[None], 0.0, Lp)
             nscatt = jnp.where(eligible, 0, nscatt)
             bcount = bcount + eligible.astype(jnp.int32)
             fresh = eligible
             alive = alive | eligible
-            obc[:] = bcount
-            ofresh[:] = fresh.astype(jnp.int32)
 
         # -- peel quadrature toward each leader (lambda-independent) ------
+        Ips, coss = [], []
         for j, (kx, ky, kz) in enumerate(leaders):
             if not scattering_peeloff:
-                ocos[j][:] = jnp.zeros_like(I_tot)
-                oIp[j][:] = jnp.zeros_like(I_tot)
+                coss.append(jnp.zeros_like(I_tot))
+                Ips.append(jnp.zeros_like(I_tot))
                 continue
             cosj = (DX * np.float32(kx) + DY * np.float32(ky)
                     + DZ * np.float32(kz))
-            ocos[j][:] = cosj
+            coss.append(cosj)
             pt0, pt1 = span(X, Y, Z, kx, ky, kz, const_d=True)
             pd = (pt1 - pt0) * inv_pp
             rsum = jnp.zeros_like(I_tot)
@@ -322,7 +282,7 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
                 my = Y + (pt0 + np.float32(kk + 0.5) * pd) * np.float32(ky)
                 mz = Z + (pt0 + np.float32(kk + 0.5) * pd) * np.float32(kz)
                 rsum = rsum + rho_s(mx, my, mz)
-            oIp[j][:] = rsum * pd
+            Ips.append(rsum * pd)
 
         # -- HG scatter about the old direction (driver g) ----------------
         phi = np.float32(2.0 * np.pi) * u_phi
@@ -349,18 +309,17 @@ def _build_kernel(grid, ds, leaders, npanels, np_peel, options, W,
         DZ = jnp.where(scat, nzd * inv_n, DZ)
         nscatt = jnp.where(scat, nscatt + 1, nscatt)
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        odx[:] = DX
-        ody[:] = DY
-        odz[:] = DZ
-        oalive[:] = alive.astype(jnp.int32)
-        ons[:] = nscatt
-        oLn[:] = jnp.where(alive[None], Ln, 0.0)
-        oLp[:] = jnp.where(alive[None], Lp, 0.0)
+        outs = [X, Y, Z, DX, DY, DZ, alive.astype(jnp.int32), nscatt,
+                jnp.where(alive[None], Ln, 0.0),
+                jnp.where(alive[None], Lp, 0.0)]
+        if want_labs:
+            outs += list(dep)
+        outs += Ips + coss
+        if refill:
+            outs += [bcount, fresh.astype(jnp.int32)]
+        return tuple(outs)
 
-    return kern, n_uniform, oc_np, [float(k) for k in kextm_w], \
+    return body, n_uniform, oc_np, [float(k) for k in kextm_w], \
         [float(g) for g in g_w]
 
 
@@ -381,7 +340,6 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
     W = int(nlambda)
     _validate(grid, ds, stellar_system, instruments, options, W,
               mueller, io_state, launch_fn)
-    from .lifecycle import make_peel_off
 
     npanels = int(options.quadrature_panels
                   or getattr(grid, "max_steps", 96))
@@ -389,72 +347,30 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     nlead = len(leaders)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
-    # VMEM budget: ~a dozen live (W, tile_rows, 128) f32 temporaries;
-    # keep W * tile_rows <= 1024 (<= ~8 MB of live VMEM) at wide W
-    tile_rows = min(tile_rows, max(8, (1024 // W) // 8 * 8))
     refill = options.refill_batches > 1
-    # in-kernel relaunch for the stellar (closed-form sampler) launch;
-    # XLA-side relaunch between kernel invocations for launch_fn lanes
+    # in-body relaunch for the stellar (closed-form sampler) launch;
+    # relaunch between events, outside the body, for launch_fn lanes
     # (dust-emission phases sample per-cycle alias tables)
     refill_kernel = refill and launch_fn is None
     refill_xla = refill and launch_fn is not None
     K = int(options.refill_batches) if refill else 1
     sampler = (stellar_system.components[0].geometry.device_sampler_xyz()
                if refill_kernel else None)
-    interpret = jax.default_backend() != "tpu"
 
-    kern, n_uniform, oc_np, kextm_w, g_w = _build_kernel(
+    body, n_uniform, oc_np, kextm_w, g_w = _build_kernel(
         grid, ds, leaders, npanels, np_peel, options, W, want_labs,
         scattering_peeloff, sampler)
-    peels = [make_peel_off(grid, ds, ins) for ins in instruments]
-    mix = ds.components[0].mix
+    oc_col = tuple(c[:, None] for c in oc_np)
+    require_supported_platform()
+
+    def call_kernel(us, Lw, l0w, state):
+        lanes = {"u": us, "L": Lw, "l0": l0w, "s": tuple(state[:8])}
+        if refill_kernel:
+            lanes["bc"] = state[8]
+        return body(tuple(jnp.asarray(c) for c in oc_col), lanes)
+
     iter_cap = int(max_iterations if max_iterations is not None
                    else options.max_scatt_events) * K
-
-    n_state = 8 + (1 if refill_kernel else 0)
-
-    oc_dev = oc_np
-
-    def call_kernel(u, Lw, l0w, state):
-        R = state[0].shape[0]
-        tr = min(tile_rows, R)
-
-        def blk():
-            return pl.BlockSpec((tr, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-
-        def blkW(lead):
-            return pl.BlockSpec((lead, tr, 128), lambda i: (0, i, 0),
-                                memory_space=pltpu.VMEM)
-
-        oc_spec = pl.BlockSpec((3, W, 128), lambda i: (0, 0, 0),
-                               memory_space=pltpu.VMEM)
-
-        out_shapes = [jax.ShapeDtypeStruct((R, 128), dt)
-                      for dt in [jnp.float32] * 6 + [jnp.int32] * 2]
-        out_specs = [blk() for _ in range(8)]
-        out_shapes += [jax.ShapeDtypeStruct((W, R, 128), jnp.float32)] * 2
-        out_specs += [blkW(W)] * 2
-        if want_labs:
-            out_shapes += [jax.ShapeDtypeStruct((R, 128), jnp.int32),
-                           jax.ShapeDtypeStruct((R, 128), jnp.float32)]
-            out_specs += [blk(), blk()]
-        out_shapes += [jax.ShapeDtypeStruct((R, 128), jnp.float32)] \
-            * (2 * nlead)
-        out_specs += [blk() for _ in range(2 * nlead)]
-        if refill_kernel:
-            out_shapes += [jax.ShapeDtypeStruct((R, 128), jnp.int32)] * 2
-            out_specs += [blk(), blk()]
-        return pl.pallas_call(
-            kern,
-            grid=(R // tr,),
-            in_specs=[blkW(n_uniform), oc_spec, blkW(W), blkW(W)]
-            + [blk() for _ in range(n_state)],
-            out_specs=tuple(out_specs),
-            out_shape=tuple(out_shapes),
-            interpret=interpret,
-        )(u, jnp.asarray(oc_dev), Lw, l0w, *state)
 
     def run_batch(key, ell, L0, tallies, launch_ctx=None):
         del ell
@@ -479,26 +395,8 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
         kext_col = jnp.asarray(np.asarray(kextm_w, np.float32))[:, None]
         g_col = np.asarray(g_w, np.float32)[:, None]
 
-        # -- pack ---------------------------------------------------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        def packW(a):
-            if npad > n:
-                a = jnp.pad(a, ((0, 0), (0, npad - n)))
-            return a.reshape(W, -1, 128)
-
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        R = npad // 128
         labs = tallies.get("labs")
-        l0_p = packW(L0.T)
+        l0_w = L0.T
 
         kext_t_col = jnp.asarray(
             np.asarray(ds.kappaext, np.float32)[0, :W])[:, None]
@@ -543,31 +441,26 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
         def body(st):
             s = st["s"]
             kit = rng.event_key(k_cycle, st["it"])
-            u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
+            u = jnp.clip(jax.random.uniform(kit, (n_uniform, n),
                                             jnp.float32),
                          1e-7, 1.0 - 1e-7)
-            state = (pack(s["pos"][:, 0]), pack(s["pos"][:, 1]),
-                     pack(s["pos"][:, 2]),
-                     pack(s["dir"][:, 0]), pack(s["dir"][:, 1]),
-                     pack(s["dir"][:, 2], 1.0),
-                     pack(s["alive"].astype(jnp.int32)), pack(s["ns"]))
+            state = (s["pos"][:, 0], s["pos"][:, 1], s["pos"][:, 2],
+                     s["dir"][:, 0], s["dir"][:, 1], s["dir"][:, 2],
+                     s["alive"].astype(jnp.int32), s["ns"])
             if refill_kernel:
-                state = state + (pack(s["bc"], K),)
-            outs = call_kernel(u, packW(s["L"]), l0_p, state)
+                state = state + (s["bc"],)
+            outs = call_kernel(list(u), s["L"], l0_w, state)
 
-            pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                 unpack(outs[2])], axis=-1)
-            dir_new = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                 unpack(outs[5])], axis=-1)
-            alive_new = unpack(outs[6]) != 0
-            ns_new = unpack(outs[7])
-            Ln = outs[8].reshape(W, -1)[:, :n]
-            Lp = outs[9].reshape(W, -1)[:, :n]
+            pos_new = jnp.stack(outs[0:3], axis=-1)
+            dir_new = jnp.stack(outs[3:6], axis=-1)
+            alive_new = outs[6] != 0
+            ns_new = outs[7]
+            Ln = outs[8]
+            Lp = outs[9]
             k = 10
             labs_c = st["labs"]
             if want_labs:
-                labs_c = binned_add(labs_c, outs[k].reshape(-1),
-                                    outs[k + 1].reshape(-1))
+                labs_c = binned_add(labs_c, outs[k], outs[k + 1])
                 k += 2
             Ips = outs[k:k + nlead]
             coss = outs[k + nlead:k + 2 * nlead]
@@ -575,12 +468,12 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
             fresh = None
             bc = None
             if refill_kernel:
-                bc = unpack(outs[k])
-                fresh = unpack(outs[k + 1]) != 0
+                bc = outs[k]
+                fresh = outs[k + 1] != 0
             elif refill_xla:
-                # relaunch exhausted lanes between kernel invocations:
-                # the launch_fn samples host-built alias tables the
-                # in-kernel relauncher cannot reproduce
+                # relaunch exhausted lanes between events: the
+                # launch_fn samples host-built alias tables the in-body
+                # relauncher cannot reproduce
                 bc = s["bc"]
                 eligible = jnp.logical_not(alive_new) & (bc < K)
                 kre = rng.event_key(k_cycle, st["it"], 7)
@@ -602,19 +495,19 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
             if scattering_peeloff:
                 tags2 = {"nscatt": ns_new, "is_dust": dust_flags}
                 for i, ins_obj in enumerate(instruments):
-                    Ii = unpack(Ips[lead_of[i]])
-                    cosj = unpack(coss[lead_of[i]])
+                    Ii = Ips[lead_of[i]]
+                    cosj = coss[lead_of[i]]
                     # HG phase weights for all wavelengths at once
                     tq = 1.0 + g_col * g_col - 2.0 * g_col * cosj[None]
                     pw = ((1.0 - g_col) * (1.0 + g_col)
                           / jnp.sqrt(tq * tq * tq))
                     cw = Lp * pw
                     if refill_kernel:
-                        # in-kernel relaunch happens BEFORE the peel
+                        # in-body relaunch happens BEFORE the peel
                         # quadrature, so Ii/cosj are at the fresh position
                         cw = jnp.where(fresh[None], Ln, cw)
                     elif refill_xla:
-                        # fresh lanes relaunched AFTER the kernel: their
+                        # fresh lanes relaunched AFTER the body: their
                         # emission peel needs the launch position's
                         # quadrature (detect_emission below), not Ii
                         cw = jnp.where(fresh[None], 0.0, cw)
@@ -641,6 +534,9 @@ def make_fused_poly_lifecycle(grid, dust_system, stellar_system,
         out["instruments"] = final["ins"]
         if labs is not None:
             out["labs"] = final["labs"]
+        if "iterations" in tallies:
+            # opt-in count of event iterations (per-iteration timing)
+            out["iterations"] = tallies["iterations"] + final["it"]
         return out
 
     return run_batch

@@ -6,32 +6,27 @@ engine/fused.py (simulateescapeandabsorption :438-515, simulatepropagation
 models WITHOUT closed-form densities: imports and clumpy decorators traced
 through a uniform voxel table (DustSystem.voxelized().as_table()).
 
-TPU re-design rationale: the table path is gather-bound — the per-cell rho
-lookups ride the serial gather unit at ~9 ns/descriptor regardless of
-formulation (measured: microbench_gather5 / microbench_mxu_*; in-kernel
-Mosaic alternatives are 2-5x slower).  So the design splits the event at
-the gather boundary:
+The event splits at the density lookup:
 
   - XLA stages the (N, P) panel-midpoint kappaext*rho rows each iteration
-    (vt.panel_paths + DustSystem.analytic_rows — the one irreducibly
-    gather-bound op, using the two-level row gather),
-  - a Pallas kernel consumes the staged panels and runs the REST of the
-    event in VMEM: cumulative-tau profile, sampled absorption deposit,
-    forced-scattering inversion, position update, Henyey-Greenstein
-    scatter — replacing the ~20 HBM-materialized (N, P) intermediates of
-    the unfused path with one kernel,
-  - peel-off extinction uses per-leader density-path maps
-    (compute_rho_path_maps) — two (N,) gathers per instrument instead of a
-    P_peel-panel staged quadrature (options.table_peel='staged' keeps the
-    exact quadrature),
-  - relaunch (refill) runs XLA-side after the kernel: dead lanes with
+    (vt.panel_paths + DustSystem.analytic_rows),
+  - the event body (make_event) consumes the staged panels and runs the
+    rest of the event per lane: cumulative-tau profile, sampled
+    absorption deposit, forced-scattering inversion, position update,
+    Henyey-Greenstein scatter.  As plain XLA the row gather fuses into
+    its consumers,
+  - peel-off extinction uses per-leader exact column DDAs
+    (make_exact_peel), or per-leader density-path maps
+    (compute_rho_path_maps, table_peel='taumap'), or a P_peel-panel
+    staged quadrature (table_peel='staged'),
+  - relaunch (refill) runs in XLA after the event: dead lanes with
     packet budget left relaunch through the FULL stellar launch machinery
     (any source, not just closed-form samplers) and get their emission
     peel-off from the same merged peel pass.
 
 Per-lane wavelengths are loop-invariant (relaunched lanes keep their ell),
 so per-lambda optical properties (albedo, g) are gathered ONCE per batch
-and passed as (R, 128) inputs — no select chains, no nlambda ceiling.
+and passed as (N,) inputs — no select chains, no nlambda ceiling.
 
 Supported configuration (else ValueError and the caller falls back):
   - table-mode single-component dust system (uniform albedo per lambda),
@@ -45,11 +40,10 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import rng
 from ..ops import binned_add
+from ..ops.backend import require_supported_platform
 from . import vector_traversal as vt
 from .fused import _expon_cutoff, _group_leaders
 
@@ -81,10 +75,10 @@ def _validate(grid, ds, instruments, options, mueller, io_state):
 
 
 def _build_kernel(grid, options, nlambda, npanels, want_labs, arith_locate):
-    """The in-VMEM event kernel: staged kr panels -> event physics.
+    """The table event body: staged kr panels -> event physics.
 
     arith_locate: uniform Cartesian grids locate the deposit cell
-    in-kernel (pure arithmetic); other grids (Voronoi direct-table mode)
+    in the body (pure arithmetic); other grids (Voronoi direct-table mode)
     get the deposit ray parameter as an output and the caller locates it
     (one locate_batched per iteration).
     """
@@ -107,31 +101,16 @@ def _build_kernel(grid, options, nlambda, npanels, want_labs, arith_locate):
               & (iz >= 0) & (iz < nz))
         return jnp.where(ok, (ix * ny + iy) * nz + iz, -1)
 
-    def kern(*refs):
-        u_ref = refs[0]
-        kr_ref = refs[1]
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         L_r, alive_r, ns_r, ell_r, l0_r, t0_r, dt_r,
-         alb_r, g_r) = refs[2:17]
-        out = refs[17:]
-        opx, opy, opz, odx, ody, odz, oL, oalive, ons = out[:9]
-        if want_labs:
-            odepi, odepv = out[9], out[10]
-
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        L = L_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
-        ell = ell_r[:]
-        Lth = l0_r[:] * inv_minred
-        t0 = t0_r[:]
-        delta = dt_r[:]
-        albedo = alb_r[:]
-        g = g_r[:]
+    def body(lanes):
+        """One event for a block of lanes: pure function over arrays."""
+        us, kr = lanes["u"], lanes["kr"]
+        (X, Y, Z, DX, DY, DZ, L, alive_i, nscatt, ell, L0, t0, delta,
+         albedo, g) = lanes["s"]
+        alive = alive_i != 0
+        Lth = L0 * inv_minred
 
         def uget(i):
-            return u_ref[i]
+            return us[i]
 
         # -- cumulative-tau profile from the staged panels ----------------
         # (ref: simulateescapeandabsorption's per-segment accumulation;
@@ -139,11 +118,12 @@ def _build_kernel(grid, options, nlambda, npanels, want_labs, arith_locate):
         cum = jnp.zeros_like(L)
         cums = []
         for kk in range(npanels):
-            cum = cum + kr_ref[kk] * delta
+            cum = cum + kr[kk] * delta
             cums.append(cum)
         taupath = cum
         one_m_e = 1.0 - jnp.exp(-taupath)
         Lm = jnp.where(alive, L, 0.0)
+        dep = []
 
         # -- sampled absorption deposit (lifecycle.py 'sampled') ----------
         if want_labs:
@@ -159,11 +139,11 @@ def _build_kernel(grid, options, nlambda, npanels, want_labs, arith_locate):
                 cell = locate(X + mid_dep * DX, Y + mid_dep * DY,
                               Z + mid_dep * DZ)
                 okd = okd & (cell >= 0)
-                odepi[:] = jnp.where(okd, cell * nlambda + ell, -1)
+                dep = [jnp.where(okd, cell * nlambda + ell, -1)]
             else:
                 # caller locates pos + mid_dep*dir (locate_batched)
-                odepi[:] = jnp.where(okd, mid_dep, -1.0)
-            odepv[:] = jnp.where(okd, D, 0.0)
+                dep = [jnp.where(okd, mid_dep, -1.0)]
+            dep.append(jnp.where(okd, D, 0.0))
 
         # -- scattered-luminosity update + termination --------------------
         L = jnp.where(alive, albedo * Lm * one_m_e, L)
@@ -232,26 +212,19 @@ def _build_kernel(grid, options, nlambda, npanels, want_labs, arith_locate):
         DZ = jnp.where(alive, nzd * inv_n, DZ)
         nscatt = jnp.where(alive, nscatt + 1, nscatt)
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        odx[:] = DX
-        ody[:] = DY
-        odz[:] = DZ
-        oL[:] = L
-        oalive[:] = alive.astype(jnp.int32)
-        ons[:] = nscatt
+        return (X, Y, Z, DX, DY, DZ, L, alive.astype(jnp.int32),
+                nscatt, *dep)
 
-    return kern
+    return body
 
 
 def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
-    """Multi-component in-VMEM event kernel: staged (ksca*rho, kext*rho)
+    """Multi-component event body: staged (ksca*rho, kext*rho)
     panel SUMS -> per-panel albedo blending (ref: the unfused
     non-uniform-albedo branch, lifecycle.py; PanDustSystem.cpp:304-316
     tallies per-component).
 
-    The per-event chain through forced propagation runs in VMEM; the
+    The per-event chain through forced propagation runs in the body; the
     scattering DIRECTION (component selection by ksca_h*rho_h at the
     interaction cell + HG) and the blended peel phase weight move
     XLA-side — they need per-component densities at one cell (H small
@@ -277,29 +250,18 @@ def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
               & (iz >= 0) & (iz < nz))
         return jnp.where(ok, (ix * ny + iy) * nz + iz, -1)
 
-    def kern(*refs):
-        u_ref = refs[0]
-        kr_ref = refs[1]          # (P, tr, 128) kext*rho panel sums
-        ks_ref = refs[2]          # (P, tr, 128) ksca*rho panel sums
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         L_r, alive_r, ns_r, ell_r, l0_r, t0_r, dt_r) = refs[3:16]
-        out = refs[16:]
-        (opx, opy, opz, oL, oalive, ocell) = out[:6]
-        if want_labs:
-            odepi, odepv = out[6], out[7]
-
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        L = L_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
-        ell = ell_r[:]
-        Lth = l0_r[:] * inv_minred
-        t0 = t0_r[:]
-        delta = dt_r[:]
+    def body(lanes):
+        """One event for a block of lanes: pure function over arrays.
+        kr / ks: per-panel kext*rho and ksca*rho sums."""
+        us, kr, ks = lanes["u"], lanes["kr"], lanes["ks"]
+        (X, Y, Z, DX, DY, DZ, L, alive_i, nscatt, ell, L0, t0,
+         delta) = lanes["s"]
+        X0, Y0, Z0 = X, Y, Z
+        alive = alive_i != 0
+        Lth = L0 * inv_minred
 
         def uget(i):
-            return u_ref[i]
+            return us[i]
 
         # cumulative tau + per-panel absorbed-energy profile
         cum = jnp.zeros_like(L)
@@ -311,12 +273,12 @@ def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
         cw = jnp.zeros_like(L)
         cws = []
         for kk in range(npanels):
-            dtau = kr_ref[kk] * delta
+            dtau = kr[kk] * delta
             cum = cum + dtau
             cums.append(cum)
             e_cur = jnp.exp(-cum)
             dE = Lm * (e_prev - e_cur)          # energy interacting here
-            alb = ks_ref[kk] / jnp.maximum(kr_ref[kk], tiny)
+            alb = ks[kk] / jnp.maximum(kr[kk], tiny)
             Lsca = Lsca + alb * dE
             w = (1.0 - alb) * dE
             cw = cw + w
@@ -326,6 +288,7 @@ def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
         taupath = cum
 
         # -- sampled absorption deposit: panel drawn by absorbed energy --
+        dep = []
         if want_labs:
             D = cw
             target = uget(2) * D
@@ -337,8 +300,8 @@ def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
             cell = locate(X + mid_dep * DX, Y + mid_dep * DY,
                           Z + mid_dep * DZ)
             okd = okd & (cell >= 0)
-            odepi[:] = jnp.where(okd, cell * nlambda + ell, -1)
-            odepv[:] = jnp.where(okd, D, 0.0)
+            dep = [jnp.where(okd, cell * nlambda + ell, -1),
+                   jnp.where(okd, D, 0.0)]
 
         # -- scattered-luminosity update + termination --------------------
         L = jnp.where(alive, Lsca, L)
@@ -378,18 +341,37 @@ def _build_kernel_multi(grid, options, nlambda, npanels, want_labs):
         Z = jnp.where(alive, Z + s * DZ, Z)
         mid_h = t0 + (i_hit.astype(jnp.float32) + 0.5) * delta
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        oL[:] = L
-        oalive[:] = alive.astype(jnp.int32)
         # interaction cell (hit-panel midpoint) for the XLA-side
         # component selection + blended peel
-        ocell[:] = jnp.where(alive, locate(px_r[:] + mid_h * DX,
-                                           py_r[:] + mid_h * DY,
-                                           pz_r[:] + mid_h * DZ), -1)
+        cell_at = jnp.where(alive, locate(X0 + mid_h * DX, Y0 + mid_h * DY,
+                                          Z0 + mid_h * DZ), -1)
+        return (X, Y, Z, L, alive.astype(jnp.int32), cell_at, *dep)
 
-    return kern
+    return body
+
+
+def make_event(grid, options, nlambda, npanels, want_labs, arith_locate,
+               multi):
+    """The table event as event(us, kr, state[, ks]) -> outputs.
+    us / kr / ks are lists of (N,) arrays (the
+    uniforms and the per-panel kappa*rho sums); state is the tuple of (N,)
+    lane arrays the body unpacks.  Shared by the single-device engine and
+    the slab-sharded one (parallel/slab_fused.py)."""
+    if multi:
+        body = _build_kernel_multi(grid, options, nlambda, npanels,
+                                   want_labs)
+    else:
+        body = _build_kernel(grid, options, nlambda, npanels, want_labs,
+                             arith_locate)
+    require_supported_platform()
+
+    def event(us, kr, state, ks=None):
+        lanes = {"u": us, "kr": kr, "s": tuple(state)}
+        if ks is not None:
+            lanes["ks"] = ks
+        return body(lanes)
+
+    return event
 
 
 def make_exact_peel(grid, ds, leaders):
@@ -477,8 +459,7 @@ def make_exact_peel(grid, ds, leaders):
                 tall = (tc if abs(kb) < 1e-12 else tb)[:, :Kp - 1]
             else:
                 # two-pointer merge of the two sorted arithmetic
-                # sequences — a per-slot unrolled scan (TPU sorts cost
-                # ~10x more)
+                # sequences — a per-slot unrolled scan instead of a sort
                 iota_b = jax.lax.broadcasted_iota(jnp.int32, tb.shape, 1)
                 iota_c = jax.lax.broadcasted_iota(jnp.int32, tc.shape, 1)
 
@@ -562,7 +543,6 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     nlead = len(leaders)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
     peel_mode = getattr(options, "table_peel", "exact")
     if peel_mode not in ("taumap", "staged", "exact"):
         raise ValueError("table_peel must be 'exact', 'taumap' or "
@@ -592,19 +572,14 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
     if refill and launch_fn is None and not stellar_system.is_isotropic:
         raise ValueError("fused table lifecycle: refill requires an "
                          "isotropic stellar system (emission peel weight)")
-    interpret = jax.default_backend() != "tpu"
     arith_locate = bool(hasattr(grid, "_uniform") and all(grid._uniform))
 
     multi = ds.ncomp > 1
     if multi and not arith_locate:
         raise ValueError("fused table lifecycle: multi-component mode "
                          "needs the uniform Cartesian voxel view")
-    if multi:
-        kern = _build_kernel_multi(grid, options, nlambda, npanels,
-                                   want_labs)
-    else:
-        kern = _build_kernel(grid, options, nlambda, npanels, want_labs,
-                             arith_locate)
+    event = make_event(grid, options, nlambda, npanels, want_labs,
+                       arith_locate, multi)
 
     # per-leader density-path maps: peel tau = map[cell] * kext(ell) with a
     # first-order in-cell correction (make_peel_off) — two gathers/packet
@@ -652,59 +627,6 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             taus.append(jnp.sum(rows * dsg, axis=1))
         return taus
 
-    n_state = 15   # px..l0 (11) + t0, dt, alb, g
-
-    def call_kernel(u, kr, state):
-        R = state[0].shape[0]
-        tr = min(tile_rows, R)
-
-        def blk():
-            return pl.BlockSpec((tr, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-
-        dep_dt = jnp.int32 if arith_locate else jnp.float32
-        out_dtypes = ([jnp.float32] * 7 + [jnp.int32] * 2
-                      + ([dep_dt, jnp.float32] if want_labs else []))
-        u_spec = pl.BlockSpec((n_uniform, tr, 128), lambda i: (0, i, 0),
-                              memory_space=pltpu.VMEM)
-        kr_spec = pl.BlockSpec((npanels, tr, 128), lambda i: (0, i, 0),
-                               memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            kern,
-            grid=(R // tr,),
-            in_specs=[u_spec, kr_spec] + [blk() for _ in range(n_state)],
-            out_specs=tuple(blk() for _ in range(len(out_dtypes))),
-            out_shape=tuple(jax.ShapeDtypeStruct((R, 128), dt)
-                            for dt in out_dtypes),
-            interpret=interpret,
-        )(u, kr, *state)
-
-    def call_kernel_multi(u, kr, ks, state):
-        R = state[0].shape[0]
-        tr = min(tile_rows, R)
-
-        def blk():
-            return pl.BlockSpec((tr, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-
-        # pos3, L, alive, cell (+ deposit bins/values)
-        out_dtypes = ([jnp.float32] * 4 + [jnp.int32] * 2
-                      + ([jnp.int32, jnp.float32] if want_labs else []))
-        u_spec = pl.BlockSpec((n_uniform, tr, 128), lambda i: (0, i, 0),
-                              memory_space=pltpu.VMEM)
-        row_spec = pl.BlockSpec((npanels, tr, 128), lambda i: (0, i, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            kern,
-            grid=(R // tr,),
-            in_specs=[u_spec, row_spec, row_spec]
-            + [blk() for _ in range(13)],
-            out_specs=tuple(blk() for _ in range(len(out_dtypes))),
-            out_shape=tuple(jax.ShapeDtypeStruct((R, 128), dt)
-                            for dt in out_dtypes),
-            interpret=interpret,
-        )(u, kr, ks, *state)
-
     def run_batch(key, ell, L0, tallies, launch_ctx=None):
         n = ell.shape[0]
         k_launch, k_cycle = jax.random.split(rng.event_key(key, 1))
@@ -747,19 +669,6 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
                                  jnp.where(alive, L, 0.0),
                                  jnp.zeros(n, jnp.int32))
 
-        # -- pack the lane state into (R, 128) tiles ----------------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        R = npad // 128
         labs = tallies.get("labs")
         state0 = {
             "pos": pos, "dir": direction, "L": L,
@@ -779,51 +688,38 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             state0["stv"] = jnp.zeros(n, jnp.float32)
             state0["stn"] = jnp.zeros((n, 3), jnp.float32)
 
-        ell_p = pack(ell)
-        pack_ell_flat = ell
-        l0_p = pack(L0, 0.0)
-        alb_p = pack(albedo_pk)
-        g_p = pack(g_pk)
 
         def body(st):
             s = st["s"]
             kit = rng.event_key(k_cycle, st["it"])
-            u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
-                                            jnp.float32),
-                         1e-7, 1.0 - 1e-7)
+            us = list(jnp.clip(jax.random.uniform(kit, (n_uniform, n),
+                                                  jnp.float32),
+                               1e-7, 1.0 - 1e-7))
 
             # -- stage the kappa*rho panel rows (the gather-bound op) -----
             dsg, _, mid = vt.panel_paths(grid, s["pos"], s["dir"], npanels)
             t0 = mid[:, 0] - 0.5 * dsg[:, 0]
 
-            def rows_to_tiles(rows):
-                return jnp.moveaxis(
-                    jnp.pad(rows, ((0, npad - n), (0, 0)))
-                    if npad > n else rows, 1, 0).reshape(npanels, R, 128)
+            def panels(rows):                      # (N, P) -> P x (N,)
+                return list(jnp.moveaxis(rows, 1, 0))
 
             labs_c = st["labs"]
             wv_h = None
             if multi:
                 ks_rows, kr_rows = ds.analytic_rows(
                     s["pos"], s["dir"], mid, ksca_pk, kext_pk)
-                state = (pack(s["pos"][:, 0]), pack(s["pos"][:, 1]),
-                         pack(s["pos"][:, 2]),
-                         pack(s["dir"][:, 0]), pack(s["dir"][:, 1]),
-                         pack(s["dir"][:, 2], 1.0),
-                         pack(s["L"]),
-                         pack(s["alive"].astype(jnp.int32)),
-                         pack(s["ns"]), ell_p, l0_p,
-                         pack(t0), pack(dsg[:, 0]))
-                outs = call_kernel_multi(u, rows_to_tiles(kr_rows),
-                                         rows_to_tiles(ks_rows), state)
+                state = (s["pos"][:, 0], s["pos"][:, 1], s["pos"][:, 2],
+                         s["dir"][:, 0], s["dir"][:, 1], s["dir"][:, 2],
+                         s["L"], s["alive"].astype(jnp.int32), s["ns"],
+                         ell, L0, t0, dsg[:, 0])
+                outs = event(us, panels(kr_rows), state,
+                             ks=panels(ks_rows))
                 if want_labs:
-                    labs_c = binned_add(labs_c, outs[6].reshape(-1),
-                                        outs[7].reshape(-1))
-                pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                     unpack(outs[2])], axis=-1)
-                L_new = unpack(outs[3])
-                alive_new = unpack(outs[4]) != 0
-                cell_at = unpack(outs[5])
+                    labs_c = binned_add(labs_c, outs[6], outs[7])
+                pos_new = jnp.stack(outs[0:3], axis=-1)
+                L_new = outs[3]
+                alive_new = outs[4] != 0
+                cell_at = outs[5]
 
                 # XLA-side component selection + HG scatter (ref: the
                 # unfused multi-component branch; per-component densities
@@ -852,39 +748,32 @@ def make_fused_table_lifecycle(grid, dust_system, stellar_system,
             else:
                 kr_rows = ds.analytic_rows(s["pos"], s["dir"], mid, None,
                                            kext_pk, want_sca=False)
-                state = (pack(s["pos"][:, 0]), pack(s["pos"][:, 1]),
-                         pack(s["pos"][:, 2]),
-                         pack(s["dir"][:, 0]), pack(s["dir"][:, 1]),
-                         pack(s["dir"][:, 2], 1.0),
-                         pack(s["L"]),
-                         pack(s["alive"].astype(jnp.int32)),
-                         pack(s["ns"]), ell_p, l0_p,
-                         pack(t0), pack(dsg[:, 0]), alb_p, g_p)
-                outs = call_kernel(u, rows_to_tiles(kr_rows), state)
+                state = (s["pos"][:, 0], s["pos"][:, 1], s["pos"][:, 2],
+                         s["dir"][:, 0], s["dir"][:, 1], s["dir"][:, 2],
+                         s["L"], s["alive"].astype(jnp.int32), s["ns"],
+                         ell, L0, t0, dsg[:, 0], albedo_pk, g_pk)
+                outs = event(us, panels(kr_rows), state)
 
                 if want_labs and arith_locate:
-                    labs_c = binned_add(labs_c, outs[9].reshape(-1),
-                                        outs[10].reshape(-1))
+                    labs_c = binned_add(labs_c, outs[9], outs[10])
                 elif want_labs:
                     # locate the sampled deposit point on the
                     # (non-Cartesian) grid: one locate_batched/iteration
-                    mid_dep = unpack(outs[9])
-                    dval = unpack(outs[10])
+                    mid_dep = outs[9]
+                    dval = outs[10]
                     pos_dep = s["pos"] + mid_dep[:, None] * s["dir"]
                     cell_dep = grid.locate_batched(pos_dep[:, None, :])[:, 0]
                     okd = (mid_dep >= 0) & (cell_dep >= 0)
                     bins = jnp.where(okd,
-                                     cell_dep * nlambda + pack_ell_flat, -1)
+                                     cell_dep * nlambda + ell, -1)
                     labs_c = binned_add(labs_c, bins,
                                         jnp.where(okd, dval, 0.0))
 
-                pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                     unpack(outs[2])], axis=-1)
-                dir_new = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                     unpack(outs[5])], axis=-1)
-                L_new = unpack(outs[6])
-                alive_new = unpack(outs[7]) != 0
-                ns_new = unpack(outs[8])
+                pos_new = jnp.stack(outs[0:3], axis=-1)
+                dir_new = jnp.stack(outs[3:6], axis=-1)
+                L_new = outs[6]
+                alive_new = outs[7] != 0
+                ns_new = outs[8]
 
             pol_ctx = None
             if pol_mode:

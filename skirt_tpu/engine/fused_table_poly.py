@@ -37,7 +37,7 @@ Estimator (unbiased defensive-mixture importance sampling):
 ref: SKIRTcore/MonteCarloSimulation.cpp:438-549 — the same event chain
 (simulateescapeandabsorption / simulatepropagation / peeloffscattering /
 simulatescattering) as engine/fused_table.py; the polychromatic packet
-is a TPU-first estimator redesign with no reference counterpart (the
+is a estimator redesign with no reference counterpart (the
 reference is strictly monochromatic per packet).
 """
 
@@ -46,13 +46,12 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .. import rng
 from ..ops import binned_add
+from ..ops.backend import require_supported_platform
 from . import vector_traversal as vt
-from .fused import _expon_cutoff, _group_leaders
+from .fused import _expon_cutoff, _group_leaders, _pick_wavelength
 from .fused_table import make_exact_peel
 
 
@@ -66,7 +65,7 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if ds.ncomp != 1 and not (hasattr(grid, "_uniform")
                               and all(grid._uniform)):
         bail("multi-component mode needs the uniform Cartesian voxel "
-             "view (per-component raw rows + in-kernel blending)")
+             "view (per-component raw rows + in-body blending)")
     if mueller is not None:
         mt = (mueller[0] if isinstance(mueller, (list, tuple))
               else mueller)
@@ -83,8 +82,8 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
     if options.store_absorption and options.deposition != "sampled":
         bail("absorption tallies require deposition='sampled'")
     if nlambda > 128:
-        bail("nlambda <= 128 (per-lane wavelength vector lives in VMEM; "
-             "split wider grids into blocks of <= 128 wavelengths)")
+        bail("nlambda <= 128 (the widest lane vector validated; split "
+             "wider grids into blocks of <= 128 wavelengths)")
     if launch_fn is not None:
         # dust-emission phases: the lane's wavelength vector carries the
         # launch cell's emission spectrum (poly launch_fn contract:
@@ -104,16 +103,13 @@ def _validate(grid, ds, stellar_system, instruments, options, nlambda,
             bail("requires distant (constant-direction) instruments")
 
 
-def _build_kernel(grid, options, W, npanels, want_labs,
-                  kext_w, albedo_w, g_w, arith_locate=True,
+def _build_kernel(grid, options, W, npanels, want_labs, arith_locate=True,
                   want_pol=False):
-    """The in-VMEM polychromatic event kernel.
+    """The polychromatic event body (single dust mix).
 
-    kext_w / albedo_w / g_w are python float tuples of length W — the
-    single-mix optical properties are compile-time constants, not
-    per-lane gathers.  arith_locate=False (direct-table grids, e.g. the
+    arith_locate=False (direct-table grids, e.g. the
     exact Voronoi tessellation): the deposit bin cannot be computed
-    in-kernel, so the kernel emits (wavelength, value, distance) and the
+    in the body, so the body emits (wavelength, value, distance) and the
     caller locates pos + mid_dep*dir with grid.locate_batched.
     """
     if arith_locate:
@@ -123,22 +119,10 @@ def _build_kernel(grid, options, W, npanels, want_labs,
     xi = float(options.scatt_bias)
     min_scatt = int(options.min_scatt_events)
     inv_minred = np.float32(1.0 / options.min_weight_reduction)
-    # per-wavelength optical constants ride in as ONE tiny (3, W, 128)
-    # input (Pallas forbids captured array constants): every
-    # per-wavelength quantity is ONE (W, tr, 128) vector op, so nlambda
+    # per-wavelength optical constants ride in as (W, 1) inputs: every
+    # per-wavelength quantity is ONE (W, lanes) vector op, so nlambda
     # scales to production panchromatic widths (24-128) without unrolling
     tiny = np.float32(1e-30)
-
-    def cumsum_w(x):
-        """Inclusive prefix sum over the leading (W) axis: log2(W)
-        shifted adds (Mosaic has no native cumsum over sublane-major
-        leading dims)."""
-        s = 1
-        while s < W:
-            x = x + jnp.concatenate(
-                [jnp.zeros((s,) + x.shape[1:], x.dtype), x[:-s]], axis=0)
-            s *= 2
-        return x
 
     def locate(X, Y, Z):
         ix = jnp.floor((X - np.float32(lo[0]))
@@ -157,64 +141,41 @@ def _build_kernel(grid, options, W, npanels, want_labs,
 
     n_uniform = 7
 
-    def kern(*refs):
-        u_ref = refs[0]
-        r_ref = refs[1]          # (P, tr, 128) raw rho panels
-        oc_ref = refs[2]         # (3, W, 128): kext / albedo / g rows
-        L_ref = refs[3]          # (W, tr, 128)
-        l0_ref = refs[4]         # (W, tr, 128)
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         alive_r, ns_r, t0_r, dt_r) = refs[5:15]
-        out = refs[15:]
-        opx, opy, opz, odx, ody, odz, oalive, ons = out[:8]
-        oLn = out[8]             # (W, tr, 128) onward luminosities
-        oLp = out[9]             # (W, tr, 128) peel luminosities
-        if want_labs:
-            odepi, odepv = out[10], out[11]
-            odepd = None if arith_locate else out[12]
-        if want_pol:
-            # polarized mode recomputes the per-lambda ratios XLA-side
-            # from the two raw column densities (BEFORE the position
-            # update: I at the interaction point + the whole-path total)
-            oIs, oIt = out[-2], out[-1]
+    def body(oc, lanes):
+        """One event for a block of lanes: pure function over arrays.
 
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
-        t0 = t0_r[:]
-        delta = dt_r[:]
+        oc: (kext, albedo, g), each (W, 1); lanes["r"]: per-panel raw
+        rho; lanes["L"], lanes["l0"]: (W, lanes).
+        """
+        kext, alb, gw = oc
+        us, r = lanes["u"], lanes["r"]
+        X, Y, Z, DX, DY, DZ, alive_i, nscatt, t0, delta = lanes["s"]
+        alive = alive_i != 0
+        l0 = lanes["l0"]
 
         def uget(i):
-            return u_ref[i]
+            return us[i]
 
         # -- cumulative column density I_k (lambda-independent) -----------
         cum = jnp.zeros_like(delta)
         cums = []
         for kk in range(npanels):
-            cum = cum + r_ref[kk] * delta
+            cum = cum + r[kk] * delta
             cums.append(cum)
         I_tot = cum
 
-        kext = oc_ref[0][:, None, :]                     # (W, 1, 128)
-        alb = oc_ref[1][:, None, :]
-        gw = oc_ref[2][:, None, :]
-        wi = jax.lax.broadcasted_iota(jnp.int32, (W, 1, 128), 0)
-        tau = kext * I_tot[None]                         # (W, tr, 128)
+        wi = jax.lax.broadcasted_iota(jnp.int32, kext.shape, 0)
+        tau = kext * I_tot[None]                         # (W, lanes)
         ome = 1.0 - jnp.exp(-tau)
-        Lm = jnp.where(alive[None], L_ref[:], 0.0)
+        Lm = jnp.where(alive[None], lanes["L"], 0.0)
+        dep = []
 
         # -- absorption deposit: one sampled wavelength per event ---------
         if want_labs:
-            D = (1.0 - alb) * Lm * ome                   # (W, tr, 128)
+            D = (1.0 - alb) * Lm * ome                   # (W, lanes)
             Dsum = jnp.sum(D, axis=0)
             target = uget(6) * Dsum
-            if W > 1:
-                cumD = cumsum_w(D)
-                wsel = jnp.sum((cumD[:W - 1] <= target[None])
-                               .astype(jnp.int32), axis=0)
-            else:
-                wsel = jnp.zeros(X.shape, jnp.int32)
+            wsel = _pick_wavelength(D, target, W)
             ohw = wi == wsel[None]
             tau_sel = jnp.sum(jnp.where(ohw, tau, 0.0), axis=0)
             kinv_sel = 1.0 / jnp.sum(jnp.where(ohw, kext, 0.0), axis=0)
@@ -229,14 +190,14 @@ def _build_kernel(grid, options, W, npanels, want_labs,
                 cell = locate(X + mid_dep * DX, Y + mid_dep * DY,
                               Z + mid_dep * DZ)
                 okd = okd & (cell >= 0)
-                odepi[:] = jnp.where(okd, cell * W + wsel, -1)
-                odepv[:] = jnp.where(okd, Dsum, 0.0)
+                dep = [jnp.where(okd, cell * W + wsel, -1),
+                       jnp.where(okd, Dsum, 0.0)]
             else:
                 # bin = cell*W + wsel is finished XLA-side after a
                 # locate_batched of pos + mid_dep*dir
-                odepi[:] = jnp.where(okd, wsel, -1)
-                odepv[:] = jnp.where(okd, Dsum, 0.0)
-                odepd[:] = jnp.where(okd, mid_dep, -1.0)
+                dep = [jnp.where(okd, wsel, -1),
+                       jnp.where(okd, Dsum, 0.0),
+                       jnp.where(okd, mid_dep, -1.0)]
 
         # -- scattered luminosity (absorption split) ----------------------
         Lab = alb * Lm * ome
@@ -297,7 +258,7 @@ def _build_kernel(grid, options, W, npanels, want_labs,
                                                             g_cc))
         costheta = jnp.where(small_g, 2.0 * u_g - 1.0,
                              jnp.clip(cos_hg, -1.0, 1.0))
-        HG = hg(gw, costheta[None])                      # (W, tr, 128)
+        HG = hg(gw, costheta[None])                      # (W, lanes)
         QHmix = jnp.sum(Q * HG, axis=0) * np.float32(1.0 / W)
 
         # peel luminosity: s-marginal weight; onward: joint weight
@@ -307,10 +268,10 @@ def _build_kernel(grid, options, W, npanels, want_labs,
         # per-wavelength termination (weight-reduction cutoff,
         # ref: MonteCarloSimulation.cpp:44-50)
         past_min = nscatt >= min_scatt
-        kill = (Ln <= l0_ref[:] * inv_minred) & past_min[None]
+        kill = (Ln <= l0 * inv_minred) & past_min[None]
         Lp = jnp.where(kill, 0.0, Lp)
         Ln = jnp.where(kill, 0.0, Ln)
-        alive = alive & jnp.any(Ln > 0, axis=0) & (I_tot > tiny)
+        alive = alive & (jnp.max(Ln, axis=0) > 0) & (I_tot > tiny)
 
         phi = np.float32(2.0 * np.pi) * u_phi
         sintheta = jnp.sqrt(jnp.maximum(0.0, 1.0 - costheta * costheta))
@@ -335,30 +296,26 @@ def _build_kernel(grid, options, W, npanels, want_labs,
         DZ = jnp.where(alive, nzd * inv_n, DZ)
         nscatt = jnp.where(alive, nscatt + 1, nscatt)
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        odx[:] = DX
-        ody[:] = DY
-        odz[:] = DZ
-        oalive[:] = alive.astype(jnp.int32)
-        ons[:] = nscatt
-        oLn[:] = jnp.where(alive[None], Ln, 0.0)
-        oLp[:] = jnp.where(alive[None], Lp, 0.0)
+        outs = [X, Y, Z, DX, DY, DZ, alive.astype(jnp.int32), nscatt,
+                jnp.where(alive[None], Ln, 0.0),
+                jnp.where(alive[None], Lp, 0.0)] + dep
         if want_pol:
-            oIs[:] = I_s
-            oIt[:] = I_tot
+            # polarized mode recomputes the per-lambda ratios XLA-side
+            # from the two raw column densities (BEFORE the position
+            # update: I at the interaction point + the whole-path total)
+            outs += [I_s, I_tot]
+        return tuple(outs)
 
-    return kern, n_uniform
+    return body, n_uniform
 
 
 def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
     """Multi-component polychromatic event kernel (round 5).
 
     Inputs: H raw rho panel row sets (no per-lane kappa folding — the
-    per-(component, wavelength) kappas ride in the oc input as
-    (3H, W, 128): kext rows, then ksca rows, then g rows).  All
-    per-wavelength quantities are (W, tr, 128) vector ops; the
+    per-(component, wavelength) kappas ride in the oc input as 3H
+    (W, 1) columns: kext, then ksca, then g).  All per-wavelength
+    quantities are (W, lanes) vector ops; the
     per-panel loop keeps only running accumulators.
 
     Estimator: the interaction point s is drawn from the uniform-driver
@@ -385,7 +342,7 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
 
     ref: MonteCarloSimulation.cpp:438-549 event chain +
     PanDustSystem.cpp:304-316 per-component tallies; the polychromatic
-    multi-component estimator is a TPU-first redesign.
+    multi-component estimator is a redesign.
     """
     nx, ny, nz = grid.nx, grid.ny, grid.nz
     lo = grid._lo
@@ -394,14 +351,6 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
     min_scatt = int(options.min_scatt_events)
     inv_minred = np.float32(1.0 / options.min_weight_reduction)
     tiny = np.float32(1e-30)
-
-    def cumsum_w(x):
-        s = 1
-        while s < W:
-            x = x + jnp.concatenate(
-                [jnp.zeros((s,) + x.shape[1:], x.dtype), x[:-s]], axis=0)
-            s *= 2
-        return x
 
     def locate(X, Y, Z):
         ix = jnp.floor((X - np.float32(lo[0]))
@@ -420,43 +369,30 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
 
     n_uniform = 8     # u1, u2, u_dep, u_g, u_phi, u_c, u_pick, u_comp
 
-    def kern(*refs):
-        u_ref = refs[0]
-        r_ref = refs[1]          # (H*P, tr, 128) raw rho panels, h-major
-        oc_ref = refs[2]         # (3H, W, 128)
-        L_ref = refs[3]
-        l0_ref = refs[4]
-        (px_r, py_r, pz_r, dx_r, dy_r, dz_r,
-         alive_r, ns_r, t0_r, dt_r) = refs[5:15]
-        out = refs[15:]
-        opx, opy, opz, odx, ody, odz, oalive, ons = out[:8]
-        oLn = out[8]
-        oLp = out[9]
-        if want_labs:
-            odepi, odepv = out[10], out[11]
-
-        X, Y, Z = px_r[:], py_r[:], pz_r[:]
-        DX, DY, DZ = dx_r[:], dy_r[:], dz_r[:]
-        alive = alive_r[:] != 0
-        nscatt = ns_r[:]
-        t0 = t0_r[:]
-        delta = dt_r[:]
+    def body(oc, lanes):
+        """One event for a block of lanes: pure function over arrays.
+        oc: 3H (W, 1) constants (kext rows, ksca rows, g rows);
+        lanes["r"]: H*P raw rho panels, h-major."""
+        us, r = lanes["u"], lanes["r"]
+        X, Y, Z, DX, DY, DZ, alive_i, nscatt, t0, delta = lanes["s"]
+        alive = alive_i != 0
+        l0 = lanes["l0"]
 
         def uget(i):
-            return u_ref[i]
+            return us[i]
 
-        kext_h = [oc_ref[h][:, None, :] for h in range(H)]      # (W,1,128)
-        ksca_h = [oc_ref[H + h][:, None, :] for h in range(H)]
-        g_h = [oc_ref[2 * H + h][:, None, :] for h in range(H)]
-        wi = jax.lax.broadcasted_iota(jnp.int32, (W, 1, 128), 0)
+        kext_h = list(oc[:H])                                   # (W, 1)
+        ksca_h = list(oc[H:2 * H])
+        g_h = list(oc[2 * H:3 * H])
+        wi = jax.lax.broadcasted_iota(jnp.int32, kext_h[0].shape, 0)
 
-        Lm = jnp.where(alive[None], L_ref[:], 0.0)
+        Lm = jnp.where(alive[None], lanes["L"], 0.0)
 
         # -- driver wavelength + per-lane driver kappas -------------------
         c = jnp.minimum((uget(5) * np.float32(W)).astype(jnp.int32), W - 1)
         ohc = wi == c[None]
         kextc_h = [jnp.sum(jnp.where(ohc, kext_h[h], 0.0), axis=0)
-                   for h in range(H)]                            # (tr,128)
+                   for h in range(H)]                            # (lanes,)
         kscac_h = [jnp.sum(jnp.where(ohc, ksca_h[h], 0.0), axis=0)
                    for h in range(H)]
 
@@ -467,7 +403,7 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
         for kk in range(npanels):
             dk = 0.0
             for h in range(H):
-                rho_hk = r_ref[h * npanels + kk]
+                rho_hk = r[h * npanels + kk]
                 dk = dk + kextc_h[h] * rho_hk
                 I_h[h] = I_h[h] + rho_hk * delta
             cumc = cumc + dk * delta
@@ -524,7 +460,7 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
         kscam_d = zW
         rho_s_h = [jnp.zeros_like(delta) for _ in range(H)]
         for kk in range(npanels):
-            rho_k = [r_ref[h * npanels + kk] for h in range(H)]
+            rho_k = [r[h * npanels + kk] for h in range(H)]
             dtau_wk = kext_h[0] * rho_k[0][None]
             ksca_wk = ksca_h[0] * rho_k[0][None]
             for h in range(1, H):
@@ -546,6 +482,7 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
                 rho_s_h[h] = jnp.where(sel_s, rho_k[h], rho_s_h[h])
 
         # -- deposit: per-wavelength absorbed estimate at s_dep -----------
+        dep = []
         if want_labs:
             Fd = kmix_d * jnp.exp(-cum_w_d) / jnp.maximum(ome, tiny)
             qd = jnp.sum(Fd, axis=0) * np.float32(1.0 / W)
@@ -554,17 +491,12 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
             D = jnp.where((tau_c > tiny)[None] & alive[None], D, 0.0)
             Dsum = jnp.sum(D, axis=0)
             target = uget(6) * Dsum
-            if W > 1:
-                cumD = cumsum_w(D)
-                wsel = jnp.sum((cumD[:W - 1] <= target[None])
-                               .astype(jnp.int32), axis=0)
-            else:
-                wsel = jnp.zeros(X.shape, jnp.int32)
+            wsel = _pick_wavelength(D, target, W)
             okd = (Dsum > 0) & alive
             cell = locate(X + s_dep * DX, Y + s_dep * DY, Z + s_dep * DZ)
             okd = okd & (cell >= 0)
-            odepi[:] = jnp.where(okd, cell * W + wsel, -1)
-            odepv[:] = jnp.where(okd, Dsum, 0.0)
+            dep = [jnp.where(okd, cell * W + wsel, -1),
+                   jnp.where(okd, Dsum, 0.0)]
 
         # -- per-wavelength mixture ratios at s ---------------------------
         F = kmix_s * jnp.exp(-cum_w_s) / jnp.maximum(ome, tiny)
@@ -613,10 +545,10 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
                                                         tiny)
 
         past_min = nscatt >= min_scatt
-        kill = (Ln <= l0_ref[:] * inv_minred) & past_min[None]
+        kill = (Ln <= l0 * inv_minred) & past_min[None]
         Lp = jnp.where(kill, 0.0, Lp)
         Ln = jnp.where(kill, 0.0, Ln)
-        alive = alive & jnp.any(Ln > 0, axis=0) & (tau_c > tiny)
+        alive = alive & (jnp.max(Ln, axis=0) > 0) & (tau_c > tiny)
 
         X = jnp.where(alive, X + s * DX, X)
         Y = jnp.where(alive, Y + s * DY, Y)
@@ -645,18 +577,40 @@ def _build_kernel_multi(grid, options, W, H, npanels, want_labs):
         DZ = jnp.where(alive, nzd * inv_n, DZ)
         nscatt = jnp.where(alive, nscatt + 1, nscatt)
 
-        opx[:] = X
-        opy[:] = Y
-        opz[:] = Z
-        odx[:] = DX
-        ody[:] = DY
-        odz[:] = DZ
-        oalive[:] = alive.astype(jnp.int32)
-        ons[:] = nscatt
-        oLn[:] = jnp.where(alive[None], Ln, 0.0)
-        oLp[:] = jnp.where(alive[None], Lp, 0.0)
+        return (X, Y, Z, DX, DY, DZ, alive.astype(jnp.int32), nscatt,
+                jnp.where(alive[None], Ln, 0.0),
+                jnp.where(alive[None], Lp, 0.0), *dep)
 
-    return kern, n_uniform
+    return body, n_uniform
+
+
+def make_event(grid, options, W, npanels, want_labs, oc_np,
+               arith_locate=True, want_pol=False, H=1):
+    """The polychromatic table event as event(us, r, Lw, l0w, state) ->
+    outputs.
+
+    oc_np: per-wavelength constants, a sequence of (W,) float32 vectors
+    (kext, albedo, g for one component; kext rows, ksca rows, g rows for
+    H > 1).  us / r are lists of (N,) arrays (uniforms, raw rho panels);
+    Lw / l0w are (W, N); state is the tuple of (N,) lane arrays.  Shared
+    by the single-device engine and the slab-sharded one
+    (parallel/slab_fused.py).  Returns (event, n_uniform).
+    """
+    if H > 1:
+        body, n_uniform = _build_kernel_multi(grid, options, W, H, npanels,
+                                              want_labs)
+    else:
+        body, n_uniform = _build_kernel(grid, options, W, npanels,
+                                        want_labs, arith_locate, want_pol)
+    oc_col = tuple(np.asarray(c, np.float32)[:, None] for c in oc_np)
+    require_supported_platform()
+
+    def event(us, r, Lw, l0w, state):
+        oc = tuple(jnp.asarray(c) for c in oc_col)
+        lanes = {"u": us, "r": r, "L": Lw, "l0": l0w, "s": tuple(state)}
+        return body(oc, lanes)
+
+    return event, n_uniform
 
 
 def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
@@ -685,10 +639,6 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     nlead = len(leaders)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
-    # VMEM budget: ~a dozen live (W, tile_rows, 128) f32 temporaries;
-    # keep W * tile_rows <= 1024 (<= ~8 MB of live VMEM) at wide W
-    tile_rows = min(tile_rows, max(8, (1024 // W) // 8 * 8))
     peel_mode = getattr(options, "table_peel", "exact")
     if peel_mode == "taumap":
         raise ValueError("polychromatic table lifecycle: table_peel="
@@ -704,7 +654,6 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         peel_mode = "staged"
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
-    interpret = jax.default_backend() != "tpu"
 
     mix = ds.components[0].mix
     multi = ds.ncomp > 1
@@ -725,13 +674,12 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
 
     if multi:
         peel_mode = "exact"       # uniform grid guaranteed by _validate
-        kern, n_uniform = _build_kernel_multi(grid, options, W, H,
-                                              npanels, want_labs)
+        oc_np = list(kext_hw) + list(ksca_hw) + list(g_hw)
     else:
-        kern, n_uniform = _build_kernel(grid, options, W, npanels,
-                                        want_labs, kext_w, albedo_w,
-                                        g_w, arith_locate,
-                                        want_pol=pol_mode)
+        oc_np = [np.asarray(v, np.float32) for v in (kext_w, albedo_w, g_w)]
+    event, n_uniform = make_event(grid, options, W, npanels, want_labs,
+                                  oc_np, arith_locate, want_pol=pol_mode,
+                                  H=H)
 
     # lambda-independent peel rho-integrals: ONE column-DDA (or staged
     # quadrature) per leader serves every wavelength
@@ -807,7 +755,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
             integrals: (W, N) = kext_hw^T @ I_h for multi, kext_w * I
             for single."""
             if multi:
-                return jnp.tensordot(jnp.asarray(kext_hw).T, Ii, axes=1)
+                return jnp.tensordot(jnp.asarray(kext_hw).T, Ii, axes=1,
+                                     precision=jax.lax.Precision.HIGHEST)
             return kext_col * Ii[None]
 
         def detect_all(ins_list, pos_p, contrib, nscatt_p, Ipeel,
@@ -840,26 +789,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                               jnp.where(alive[None], L, 0.0),
                               jnp.zeros(n, jnp.int32), Ipeel0, comp0)
 
-        # -- pack the lane state into (R, 128) tiles ----------------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        def packW(a):                                # (W, N) -> (W, R, 128)
-            if npad > n:
-                a = jnp.pad(a, ((0, 0), (0, npad - n)))
-            return a.reshape(W, -1, 128)
-
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        R = npad // 128
         labs = tallies.get("labs")
-        l0_p = packW(L0.T)
+        l0_w = L0.T
 
         state0 = {"pos": pos, "dir": direction, "L": L, "alive": alive,
                   "ns": jnp.zeros(n, jnp.int32), "bc": jnp.ones(n, jnp.int32)}
@@ -878,64 +809,10 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
         if count_events:
             carry["nev"] = jnp.float32(0.0)
 
-        if multi:
-            oc_np = np.concatenate([kext_hw, ksca_hw, g_hw])   # (3H, W)
-        else:
-            oc_np = np.stack([np.asarray(kext_w, np.float32),
-                              np.asarray(albedo_w, np.float32),
-                              np.asarray(g_w, np.float32)])
-        oc_rows = oc_np.shape[0]
-        oc = jnp.asarray(np.broadcast_to(
-            oc_np[:, :, None], (oc_rows, W, 128)).copy())
-        r_panels = npanels * (H if multi else 1)
-
-        def call_kernel(u, r, Lw, state):
-            def blk():
-                return pl.BlockSpec((tile_rows, 128), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)
-
-            def blkW(lead):
-                return pl.BlockSpec((lead, tile_rows, 128),
-                                    lambda i: (0, i, 0),
-                                    memory_space=pltpu.VMEM)
-
-            oc_spec = pl.BlockSpec((oc_rows, W, 128), lambda i: (0, 0, 0),
-                                   memory_space=pltpu.VMEM)
-
-            out_dtypes = ([jnp.float32] * 6 + [jnp.int32] * 2)
-            out_shapes = [jax.ShapeDtypeStruct((R * 128 // 128, 128), dt)
-                          for dt in out_dtypes]
-            out_specs = [blk() for _ in out_dtypes]
-            out_shapes += [jax.ShapeDtypeStruct((W, R, 128), jnp.float32)] * 2
-            out_specs += [blkW(W)] * 2
-            if want_labs:
-                out_shapes += [jax.ShapeDtypeStruct((R, 128), jnp.int32),
-                               jax.ShapeDtypeStruct((R, 128), jnp.float32)]
-                out_specs += [blk(), blk()]
-                if not arith_locate:     # deposit distance for XLA locate
-                    out_shapes += [jax.ShapeDtypeStruct((R, 128),
-                                                        jnp.float32)]
-                    out_specs += [blk()]
-            if pol_mode:
-                # I at the interaction point + whole-path total
-                out_shapes += [jax.ShapeDtypeStruct((R, 128),
-                                                    jnp.float32)] * 2
-                out_specs += [blk(), blk()]
-            return pl.pallas_call(
-                kern,
-                grid=(R // tile_rows,),
-                in_specs=[blkW(n_uniform), blkW(r_panels), oc_spec,
-                          blkW(W), blkW(W)]
-                + [blk() for _ in range(10)],
-                out_specs=tuple(out_specs),
-                out_shape=tuple(out_shapes),
-                interpret=interpret,
-            )(u, r, oc, Lw, l0_p, *state)
-
         def body(st):
             s = st["s"]
             kit = rng.event_key(k_cycle, st["it"])
-            u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
+            u = jnp.clip(jax.random.uniform(kit, (n_uniform, n),
                                             jnp.float32),
                          1e-7, 1.0 - 1e-7)
 
@@ -957,29 +834,22 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 r_rows = ds.analytic_rows(s["pos"], s["dir"], midp, None,
                                           ones, want_sca=False)
             t0 = midp[:, 0] - 0.5 * dsg[:, 0]
-            r = jnp.moveaxis(
-                jnp.pad(r_rows, ((0, npad - n), (0, 0)))
-                if npad > n else r_rows, 1, 0).reshape(r_panels, R, 128)
 
-            state = (pack(s["pos"][:, 0]), pack(s["pos"][:, 1]),
-                     pack(s["pos"][:, 2]),
-                     pack(s["dir"][:, 0]), pack(s["dir"][:, 1]),
-                     pack(s["dir"][:, 2], 1.0),
-                     pack(s["alive"].astype(jnp.int32)),
-                     pack(s["ns"]), pack(t0), pack(dsg[:, 0]))
-            outs = call_kernel(u, r, packW(s["L"]), state)
+            state = (s["pos"][:, 0], s["pos"][:, 1], s["pos"][:, 2],
+                     s["dir"][:, 0], s["dir"][:, 1], s["dir"][:, 2],
+                     s["alive"].astype(jnp.int32), s["ns"], t0, dsg[:, 0])
+            outs = event(list(u), list(jnp.moveaxis(r_rows, 1, 0)),
+                         s["L"], l0_w, state)
 
             labs_c = st["labs"]
             if want_labs and arith_locate:
-                odepi, odepv = outs[10], outs[11]
-                labs_c = binned_add(labs_c, odepi.reshape(-1),
-                                    odepv.reshape(-1))
+                labs_c = binned_add(labs_c, outs[10], outs[11])
             elif want_labs:
                 # direct-table grid: locate the sampled deposit point
                 # (one locate_batched per iteration, lambda-independent)
-                wsel = unpack(outs[10])
-                dval = unpack(outs[11])
-                mid_dep = unpack(outs[12])
+                wsel = outs[10]
+                dval = outs[11]
+                mid_dep = outs[12]
                 pos_dep = s["pos"] + mid_dep[:, None] * s["dir"]
                 cell_dep = grid.locate_batched(pos_dep[:, None, :])[:, 0]
                 okd = (mid_dep >= 0) & (wsel >= 0) & (cell_dep >= 0)
@@ -987,14 +857,12 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 labs_c = binned_add(labs_c, bins,
                                     jnp.where(okd, dval, 0.0))
 
-            pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                 unpack(outs[2])], axis=-1)
-            dir_new = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                 unpack(outs[5])], axis=-1)
-            alive_new = unpack(outs[6]) != 0
-            ns_new = unpack(outs[7])
-            Ln = outs[8].reshape(W, -1)[:, :n]       # onward
-            Lp = outs[9].reshape(W, -1)[:, :n]       # peel
+            pos_new = jnp.stack(outs[0:3], axis=-1)
+            dir_new = jnp.stack(outs[3:6], axis=-1)
+            alive_new = outs[6] != 0
+            ns_new = outs[7]
+            Ln = outs[8]                             # onward
+            Lp = outs[9]                             # peel
 
             pol_ctx = None
             if pol_mode:
@@ -1005,8 +873,8 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 # importance weights in Ln) are REPLACED by the driver
                 # wavelength's polarized phase sample and its
                 # defensive-mixture weights (ref: DustMix.cpp:584-620).
-                I_s = unpack(outs[-2])
-                I_tot = unpack(outs[-1])
+                I_s = outs[-2]
+                I_tot = outs[-1]
                 xi_v = float(options.scatt_bias)
                 alb_col = jnp.asarray(np.asarray(albedo_w,
                                                  np.float32))[:, None]
@@ -1024,7 +892,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 Qmix_v = jnp.sum(Q_v, axis=0) * np.float32(1.0 / W)
 
                 # the kernel's driver-lambda draw, reproduced exactly
-                u5 = u[5].reshape(-1)[:n]
+                u5 = u[5]
                 c_drv = jnp.minimum((u5 * np.float32(W))
                                     .astype(jnp.int32), W - 1)
                 ohc = (jnp.arange(W, dtype=jnp.int32)[:, None]
@@ -1061,7 +929,7 @@ def make_fused_table_poly_lifecycle(grid, dust_system, stellar_system,
                 # per-lambda termination with the polarized weights
                 # (the kernel's alive_new stays the lane-level decision)
                 past_min = s["ns"] >= int(options.min_scatt_events)
-                kill = (Ln <= l0_p.reshape(W, -1)[:, :n]
+                kill = (Ln <= l0_w
                         * np.float32(1.0 / options.min_weight_reduction)) \
                     & past_min[None]
                 Lp = jnp.where(kill | ~alive_new[None], 0.0, Lp)

@@ -7,7 +7,7 @@ rundustemission + dodustemissionchunk (:242-342, cell-selection bias xi
 with weight compensation); PanDustSystem.cpp — Labs stellar/dust split
 tables, rebootLabsdust, calculatedustemission.
 
-TPU re-design: the host drives the convergence loop; each cycle computes
+Batched re-design: the host drives the convergence loop; each cycle computes
 per-cell equilibrium emission spectra in one batched device pass
 (media.emissivity), builds per-wavelength cell CDFs as a (Nlambda, Ncells)
 cumulative-sum matrix, and runs jit-compiled dust-emission launch batches
@@ -39,7 +39,7 @@ def make_dust_launch(grid, nlambda: int):
     and luminosity-weighted distributions, position uniform in cell,
     isotropic direction, weight compensation 1/(1-xi+xi*Lmean/Lv[m]).
 
-    TPU re-design: the reference's per-packet CDF binary search
+    Batched re-design: the reference's per-packet CDF binary search
     (PanMonteCarloSimulation.cpp:303, NR::locate) would lower to ~log2(N)
     sequential dependent gathers per packet; the luminosity branch instead
     samples Walker alias tables (numerics.build_alias_tables, rebuilt on
@@ -204,28 +204,20 @@ class PanSimulation(OligoSimulation):
                                for c in self.dust_system.components]
             self.transient = self.transients[0]
 
-        # dust-emission lifecycle variants.  Persistent-lane refill only
-        # applies to the stellar launch (the dust launch_fn samples from
-        # the per-cycle luminosity CDF, which the in-kernel relauncher
-        # cannot reproduce), so it is stripped here; the fused megakernel
-        # itself supports launch_fn and carries over when enabled.
-        # launch cells/positions at LEAF resolution (the emission solve
-        # and the per-cell luminosity CDFs live on leaf cells even when
-        # the traversal runs on the voxel table)
+        # dust-emission lifecycle variants.  The dust launch_fn samples
+        # from the per-cycle luminosity CDF, which the analytic engines'
+        # in-body relauncher (closed-form samplers only) cannot reproduce,
+        # so refill is stripped for them; the fused TABLE path relaunches
+        # through launch_fn between events and keeps refill.  Launch
+        # cells/positions are at LEAF resolution (the emission solve and
+        # the per-cell luminosity CDFs live on leaf cells even when the
+        # traversal runs on the voxel table).
         from .lifecycle import LifecycleOptions as _LO
-        # the fused TABLE path relaunches XLA-side through launch_fn, so
-        # dust phases keep persistent-lane refill there; the in-kernel
-        # relauncher of the analytic megakernel cannot reproduce the
-        # per-cycle CDF launch, so refill is stripped otherwise
         _table_path = (self.options.fused
                        and getattr(self.dust_system, "table", False))
-        self._dust_refill = (max(int(self.options.refill_batches), 1)
-                             if _table_path else 1)
         dust_opts = _LO(**{**self.options.__dict__,
                            "refill_batches": (self.options.refill_batches
                                               if _table_path else 0)})
-        final_opts = _LO(**{**dust_opts.__dict__,
-                            "store_absorption": False})
         from .lifecycle import make_lifecycle, make_lifecycle_with_fallback
         self._dust_poly = False
         if self._poly:
@@ -264,22 +256,26 @@ class PanSimulation(OligoSimulation):
                 # fallback chain builds the mono engines directly
                 dust_opts = _LO(**{**dust_opts.__dict__,
                                    "polychromatic": False})
-                final_opts = _LO(**{**final_opts.__dict__,
-                                    "polychromatic": False})
             launch = make_dust_launch(self.dust_system_out.grid,
                                       self.nlambda)
-            self._run_dust_absorb = jax.jit(make_lifecycle_with_fallback(
-                self.grid, self.dust_system, None, self.instruments,
-                dust_opts, self.nlambda, launch_fn=launch,
-                emission_peeloff=False, scattering_peeloff=False,
-                is_dust_emission=True, mueller=self._mueller,
-                log=self.log), donate_argnums=(3,))
-            self._run_dust_emit = jax.jit(make_lifecycle_with_fallback(
-                self.grid, self.dust_system, None, self.instruments,
-                final_opts, self.nlambda, launch_fn=launch,
-                emission_peeloff=True, scattering_peeloff=True,
-                is_dust_emission=True, mueller=self._mueller,
-                log=self.log), donate_argnums=(3,))
+            args = (self.grid, self.dust_system, None, self.instruments)
+            absorb_kw = dict(launch_fn=launch, emission_peeloff=False,
+                             scattering_peeloff=False, is_dust_emission=True,
+                             mueller=self._mueller)
+            emit_kw = dict(absorb_kw, emission_peeloff=True,
+                           scattering_peeloff=True)
+            absorb, used = make_lifecycle_with_fallback(
+                *args, dust_opts, self.nlambda, log=self.log, **absorb_kw)
+            # the emission variant only drops the absorption tallies, which
+            # relaxes the fused gates: it builds with the options the
+            # absorption variant kept
+            self._run_dust_absorb = jax.jit(absorb, donate_argnums=(3,))
+            self._run_dust_emit = jax.jit(make_lifecycle(
+                *args, _LO(**{**used.__dict__, "store_absorption": False}),
+                self.nlambda, **emit_kw), donate_argnums=(3,))
+            # batches are counted by the options the engines kept: without
+            # refill every lane launches one packet
+            self._dust_refill = max(int(used.refill_batches), 1)
 
         # per-cell 1/(4 pi V rho) for the absorbed-power-per-mass
         # conversion — at LEAF resolution
@@ -553,7 +549,7 @@ class PanSimulation(OligoSimulation):
             self.log.info("resuming the pan loop from "
                           + self._pan_ckpt_path)
             labs_stellar = np.asarray(ck["labs_stellar"])
-            # numpy on purpose: jnp.asarray would downcast the float64
+            # kept as numpy: jnp.asarray would downcast the float64
             # accumulators to float32 (x64 disabled) and break the
             # bit-for-bit resume guarantee
             acc = {"labs": labs_stellar.reshape(-1),

@@ -4,7 +4,7 @@ ref: SKIRTcore/Simulation.cpp:18-74 (setupAndRun), MonteCarloSimulation.cpp
 (runstellaremission, chunk policy :71-104), OligoMonteCarloSimulation.cpp
 (stellar emission then write).
 
-TPU re-design: the (wavelength x chunk) task grid of the reference becomes
+Batched re-design: the (wavelength x chunk) task grid of the reference becomes
 a sequence of jit-compiled launch batches with the wavelength index as a
 per-packet attribute; tallies accumulate on-device in float32 within a
 batch and on the host in float64 across batches.
@@ -22,7 +22,8 @@ import jax.numpy as jnp
 from .. import rng
 from ..log import Log
 from ..units import Units
-from .lifecycle import LifecycleOptions, make_lifecycle
+from .lifecycle import (LifecycleOptions, make_lifecycle,
+                        make_lifecycle_with_fallback)
 
 
 class OligoSimulation:
@@ -207,7 +208,6 @@ class OligoSimulation:
         back to monochromatic batches otherwise — the batch SHAPES depend
         on which engine built, so the choice must be made up front, not
         by the generic fused fallback)."""
-        from .lifecycle import make_lifecycle, make_lifecycle_with_fallback
         grid, dust_system = self.grid, self.dust_system
         self._poly = False
         if getattr(self.options, "polychromatic", False):
@@ -223,10 +223,12 @@ class OligoSimulation:
                 from dataclasses import replace as _replace
                 self.options = _replace(self.options, polychromatic=False)
         if not self._poly:
-            self._lifecycle = make_lifecycle_with_fallback(
+            # the options follow a fallback, so that the batches are
+            # counted without the fast path's refill
+            self._lifecycle, self.options = make_lifecycle_with_fallback(
                 grid, dust_system, self.stellar_system, self.instruments,
-                self.options, self.nlambda, mueller=self._mueller,
-                log=self.log)
+                self.options, self.nlambda, log=self.log,
+                mueller=self._mueller)
         self._run_batch = jax.jit(self._lifecycle, donate_argnums=(3,))
 
     def _batches(self):

@@ -33,8 +33,9 @@ def sweep(grid, origin, direction, seg_fn, carry0, state0=None,
     entirely (dead packets must not extend the lockstep loop).
 
     The outer while-loop condition is only evaluated every `check_every`
-    steps; the inner steps run as an unrolled fori (the data-dependent
-    condition is the pipeline bubble on TPU).
+    steps; the inner steps run as an unrolled fori (each evaluation of
+    the data-dependent condition is a device-to-host round trip of the
+    loop).
     """
     if state0 is None:
         state0 = grid.start(origin)
@@ -142,7 +143,7 @@ def record_path(grid, origin, direction, state0=None, max_steps=None,
 
     ref: DustGridPath — the reference records every path segment
     (cell m, ds, s) once and replays it for absorption and for the
-    pathlength(tau) inverse lookup (DustGridPath.hpp:117-168).  On TPU the
+    pathlength(tau) inverse lookup (DustGridPath.hpp:117-168).  Here the
     bounded-step buffer turns the per-segment physics into *vectorized*
     (S, N) array math (cumsum over the step axis) instead of S sequential
     loop iterations, and saves the second traversal that the streaming
@@ -206,8 +207,8 @@ def sweep_tau_recorded(grid, origin, direction, seg_fn, carry0, state0=None,
     recording costs only buffer writes — no extra gathers — and lets the
     caller invert tau -> path position afterwards WITHOUT the second
     traversal that `propagate_to_tau` performs (ref: DustGridPath records
-    the path once and replays it; gathers are the TPU traversal bottleneck,
-    so eliminating the replay traversal halves the per-event gather count).
+    the path once and replays it; eliminating the replay traversal halves
+    the per-event gather count).
 
     Unwritten cumtau rows stay at +BIG so a row-count inversion
     (sum(cumtau < tau)) never lands in the padding.

@@ -3,13 +3,12 @@
 ref: SKIRTcore/CartesianDustGrid.cpp:136-220 walks a ray wall-by-wall in a
 sequential DDA loop; SKIRTcore/DustGridPath.hpp records the segments.
 
-TPU re-design: a sequential per-cell walk serializes one tiny gather per
-step — measured ~1 ms per step at 131k lanes on TPU v5e, because dependent
-gathers cannot be batched.  For border-structured grids the full crossing
-set is known UP FRONT: every grid surface yields a closed-form ray
-parameter.  So instead of walking, we (1) compute ALL wall-crossing
-parameters in one batched op, (2) sort them per lane (XLA's per-lane sort
-measures ~0.06 ms for (131k, 96)), and (3) derive segment lengths and cell
+Batched re-design: a sequential per-cell walk serializes one tiny gather per
+step, because dependent gathers cannot be batched.  For border-structured
+grids the full crossing set is known UP FRONT: every grid surface yields a
+closed-form ray parameter.  So instead of walking, we (1) compute ALL
+wall-crossing parameters in one batched op, (2) sort them per lane, and
+(3) derive segment lengths and cell
 ids from consecutive crossing pairs with arithmetic + *batched* gathers.
 There is no sequential loop at all, and every memory op is vectorized.
 
@@ -79,19 +78,13 @@ def panel_paths(grid, pos, direction, npanels: int):
     return ds, te, mid
 
 
-def row_cumsum_mxu(x):
-    """Inclusive row cumsum as a triangular matmul on the MXU.
-
-    XLA lowers jnp.cumsum to a logarithmic sequence of shifted adds (~12
-    full passes over the array for S~100); a (N,S)@(S,S) lower-triangular
-    matmul does it in one MXU pass (S^2 MACs per row are ~free next to
-    the HBM traffic).
-    """
+def row_cumsum(x):
+    """Inclusive row cumsum as one (N,S)@(S,S) lower-triangular matmul."""
     S = x.shape[-1]
     tri = jnp.asarray(np.tril(np.ones((S, S), np.float32)).T)
-    # HIGHEST: TPU's default matmul precision rounds f32 operands toward
-    # bfloat16 (preferred_element_type only sets the accumulator), which
-    # would put ~1e-3 relative error on every optical depth
+    # HIGHEST: a default float32 product may run in TF32 on the GPU
+    # (preferred_element_type only sets the accumulator), which would put
+    # ~1e-3 relative error on every optical depth
     return jax.lax.dot_general(
         x, tri, (((x.ndim - 1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
@@ -128,8 +121,8 @@ def panel_pick_mid(t0, delta, i_pick):
 def masked_row_pick(rows, i_hit):
     """rows (N, S) -> (N,) value at per-lane column i_hit.
 
-    jnp.take_along_axis lowers to a slow per-lane gather on TPU (measured
-    6 ms for 131k rows); a one-hot masked sum is ~100x faster.
+    A one-hot masked sum over the S columns instead of a per-lane
+    jnp.take_along_axis gather.
     """
     S = rows.shape[1]
     sel = jnp.arange(S, dtype=jnp.int32)[None, :] == i_hit[:, None]

@@ -29,7 +29,7 @@ def main(argv=None):
     parser.add_argument("-p", "--packets", type=float, default=None,
                         help="override packets per forward simulation")
     parser.add_argument("--fast", action="store_true",
-                        help="TPU-native fast estimators for the per-genome "
+                        help="fast estimators for the per-genome "
                              "forward runs")
     args = parser.parse_args(argv)
 

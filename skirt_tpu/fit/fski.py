@@ -6,7 +6,7 @@ FitSKIRTcore/AdjustableSkirtSimulation.cpp:150-193 (ski templates with
 OligoFitScheme.hpp (simulation + parameterRanges + referenceImages +
 optim properties), ReferenceImage.hpp, Optimization.hpp:29-52.
 
-TPU re-design: instead of re-running SKIRT in-process per genome with a
+Batched re-design: instead of re-running SKIRT in-process per genome with a
 serialized master/slave task farm, each genome's forward model is an
 OligoSimulation built from the substituted template; per-component frames
 come from one run per stellar component (linear superposition makes this

@@ -1,4 +1,4 @@
-"""Spatial dust grids and their TPU traversal kernels.
+"""Spatial dust grids and their batched traversal kernels.
 
 ref: SKIRTcore/DustGrid.hpp:22-131 and the grid cluster (§2.6 of SURVEY.md):
 Cartesian/cylindrical/spherical structured grids, octree/bintree adaptive

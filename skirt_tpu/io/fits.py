@@ -1,6 +1,6 @@
 """Minimal self-contained FITS image reader/writer (no astropy dependency).
 
-TPU-native replacement for the reference's Cfitsio-based FITS layer
+Batched replacement for the reference's Cfitsio-based FITS layer
 (ref: SKIRTcore/FITSInOut.cpp:32,95 and SKIRTcore/Image.cpp:174,277-301):
 writes 2-D frames and 3-D spectral cubes with the same WCS-ish keywords the
 reference emits, reads simple single-HDU images for kernels/reference maps.

@@ -418,7 +418,7 @@ def write_cells_crossed(grid, dust_system, stellar_system, out_dir: str,
 
     ref: DustSystem.cpp:965-971 + :1010-1021 — the reference counts the
     path length (pp->size()) of every fillOpticalDepth call and writes a
-    two-column histogram.  TPU re-design: a per-event host-side counter
+    two-column histogram.  Batched re-design: a per-event host-side counter
     would serialize the SPMD lockstep loop, so the histogram is sampled
     POST-HOC over n_samples launch-distributed rays traced through the
     same grid (statistically the same first-flight distribution; the

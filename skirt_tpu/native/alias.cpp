@@ -2,7 +2,7 @@
 //
 // ref role: the reference samples its dust-emission cell CDF with
 // NR::locate binary searches per packet (PanMonteCarloSimulation.cpp:303);
-// the TPU engine samples Walker alias tables instead (2 gathers/packet).
+// the engine samples Walker alias tables instead (2 gathers/packet).
 // Construction is O(N) per row (Vose's method) but pointer-chasing —
 // a poor fit for numpy, so it lives here next to the Voronoi builder.
 

@@ -1,6 +1,6 @@
 """Numerical building blocks: grid construction, interpolation, CDF sampling.
 
-TPU-native replacement for the reference's NR numerics toolbox
+Batched replacement for the reference's NR numerics toolbox
 (ref: Fundamentals/NR.hpp:27-404).  Host-side (setup-time) routines use
 NumPy float64; device-side routines are jax.numpy and jit/vmap friendly.
 """
@@ -188,8 +188,7 @@ def build_alias_tables(weights: "np.ndarray"):
     alias (R, N) int32): sample row r with two uniforms as
       j = floor(u1 * N);  m = j if u2 < prob[r, j] else alias[r, j]
     — EXACT discrete sampling in 2 gathers, replacing a per-sample
-    searchsorted (~log2(N) sequential dependent gathers on the TPU's
-    serial gather unit).  Rows with zero total weight sample uniformly.
+    searchsorted (~log2(N) sequential dependent gathers).  Rows with zero total weight sample uniformly.
 
     ref: the reference samples its dust-emission cell CDF with NR::locate
     binary searches (PanMonteCarloSimulation.cpp:303); alias tables are

@@ -1,3 +1,3 @@
-"""TPU kernels for the framework's hot scatter/gather-shaped ops."""
+"""Tally primitives and the platform's kernel execution mode."""
 
 from .binned import binned_add, drop_add  # noqa: F401

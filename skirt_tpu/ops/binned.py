@@ -1,103 +1,13 @@
-"""Binned scatter-add as a two-level one-hot MXU contraction (Pallas).
+"""Tally scatter-adds with a drop sentinel.
 
 ref: the reference's tally primitive is a lock-free atomic add per event
-(Fundamentals/LockFree.hpp:25-37).  On TPU, XLA lowers `.at[idx].add` to
-the serial scatter unit (~7 ns per update measured on v5e — see
-BASELINE.md); for the lifecycle's per-event (N,) tallies that is the
-single largest remaining cost.
-
-TPU re-design: split each bin index into (q, r) = (idx // R, idx % R) and
-accumulate C[q, r] += v via one-hot matrices:
-
-    C += Eq^T @ (Er * v),   Eq[e, qq] = [q_e == qq], Er[e, rr] = [r_e == rr]
-
-The contraction runs on the MXU (~nbins MACs per element are ~free), the
-one-hots are built in VMEM registers per tile and never touch HBM, and the
-(Q, R) accumulator lives in VMEM across the (sequential) grid.  Exact in
-float32.  Falls back to XLA scatter off-TPU and for shapes where the
-contraction does not pay (many bins or few updates).
+(Fundamentals/LockFree.hpp:25-37).  XLA lowers `.at[idx].add` to a
+scatter that runs as atomic adds on the GPU, the same primitive.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
-import jax
 import jax.numpy as jnp
-
-_TILE_ROWS = 128          # elements per tile = _TILE_ROWS * 128
-_MAX_BINS = 1 << 17       # contraction cost ~ nbins MACs/element
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("nbins_padded", "R", "Q"))
-def _mxu_bincount(idx, val, *, nbins_padded, R, Q):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = idx.shape[0]
-    tile = _TILE_ROWS * 128
-    npad = _ceil_to(max(n, tile), tile)
-    idx = jnp.pad(idx, (0, npad - n))
-    val = jnp.pad(val, (0, npad - n))
-    idx2 = idx.reshape(-1, 128)
-    val2 = val.reshape(-1, 128)
-    ntiles = idx2.shape[0] // _TILE_ROWS
-
-    def kern(idx_ref, val_ref, out_ref):
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        qi = jax.lax.broadcasted_iota(jnp.int32, (Q, 128), 0)
-        ri = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
-        GR = 8   # rows per dot: amortizes the per-iteration Mosaic
-                 # overhead (a (1,128)-row loop runs ~0.4 us/row
-                 # regardless of the dot size)
-
-        def rows(j, acc):
-            Eqs = []
-            Ervs = []
-            for t in range(GR):
-                sl = pl.ds(j * GR + t, 1)
-                q = idx_ref[sl, :] // R                      # (1, 128)
-                r = idx_ref[sl, :] - q * R
-                v = val_ref[sl, :]
-                Eqs.append((qi == q).astype(jnp.float32))    # (Q, 128)
-                Ervs.append(jnp.where(ri == r, v, 0.0))      # (R, 128)
-            Eq = jnp.concatenate(Eqs, axis=1)                # (Q, GR*128)
-            Erv = jnp.concatenate(Ervs, axis=1)              # (R, GR*128)
-            # C[q, r] += sum_e Eq[q, e] * Erv[r, e].
-            # Default (bfloat16-product) MXU precision is deliberate for
-            # tallies: the one-hot factor is exact in bfloat16 and the
-            # per-contribution value rounding (~4e-3 relative, unbiased
-            # round-to-nearest) is far below per-bin Monte Carlo noise;
-            # HIGHEST would cost ~3x MXU passes
-            return acc + jax.lax.dot_general(
-                Eq, Erv, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        out_ref[:] += jax.lax.fori_loop(0, _TILE_ROWS // GR, rows,
-                                        jnp.zeros((Q, R), jnp.float32))
-
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((Q, R), jnp.float32),
-        grid=(ntiles,),
-        in_specs=[
-            pl.BlockSpec((_TILE_ROWS, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_TILE_ROWS, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Q, R), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-    )(idx2, val2)
-    return out.reshape(nbins_padded)
 
 
 def drop_add(tally, idx, values):
@@ -113,146 +23,9 @@ def drop_add(tally, idx, values):
 
 
 def binned_add(tally, idx, values):
-    """`tally.at[idx].add(values, mode='drop')` for flat (N,) updates.
+    """`tally.at[idx].add(values)` for flat (N,) updates of a flat tally.
 
-    Negative / out-of-range indices are dropped (the lifecycle's sentinel
-    for escaped or padded lanes).  Uses the MXU contraction kernel on TPU
-    when it pays; XLA scatter otherwise.
+    Negative and out-of-range indices are dropped (the lifecycle's
+    sentinel for escaped or padded lanes).
     """
-    nbins = tally.shape[0]
-    flat_idx = idx.ravel()
-    flat_val = values.ravel()
-    # the contraction costs ~nbins MACs per element; cap the total MAC
-    # budget so degenerate shapes cannot regress below the serial scatter
-    macs = flat_idx.shape[0] * nbins
-    use_mxu = (jax.default_backend() == "tpu" and nbins <= _MAX_BINS
-               and flat_idx.shape[0] >= (1 << 14)
-               and flat_idx.shape[0] * 4 >= nbins
-               and macs <= (1 << 45))
-    if not use_mxu:
-        return drop_add(tally, idx, values)
-    R = 128 if nbins <= 128 * 128 else 256
-    Q = _ceil_to(-(-nbins // R), 8)
-    ok = (flat_idx >= 0) & (flat_idx < nbins)
-    safe_idx = jnp.where(ok, flat_idx, 0)
-    safe_val = jnp.where(ok, flat_val, 0.0)
-    binned = _mxu_bincount(safe_idx, safe_val,
-                           nbins_padded=Q * R, R=R, Q=Q)
-    return tally + binned[:nbins]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("nlambda", "Q", "R", "rows_pb"))
-def _mxu_bincount_blocked(cell, val, *, nlambda, Q, R, rows_pb):
-    """Per-wavelength-block bincount over CELLS for lambda-BLOCKED lanes.
-
-    The round-3 lambda-blocked experiment failed on the Mosaic small-dot
-    floor because each block ran its own tiny contraction chain.  This
-    formulation keeps ONE one-hot build pass (identical op count to the
-    lambda-minor kernel) and issues one (Q, GR*128)x(GR*128, R) dot per
-    GR-row group — each group lies entirely inside one lambda block, so
-    the group's dot lands in that block's (Q, R) output slice directly.
-    The contraction cost is Ncells MACs/element, INDEPENDENT of nlambda
-    (the lambda-minor kernel pays Ncells*nlambda), which is what breaks
-    the (Ncells x nlambda)-bin tally wall at production wavelength
-    counts.
-
-    cell: (N,) int32 cell ids, lanes ordered in nlambda equal contiguous
-    blocks by wavelength; rows_pb = rows (of 128 lanes) per block, must
-    be a multiple of GR=8.  Returns (nlambda, Q, R) partial tallies.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    GR = 8
-    n = cell.shape[0]
-    idx2 = cell.reshape(-1, 128)
-    val2 = val.reshape(-1, 128)
-    nrows = idx2.shape[0]
-    assert nrows == nlambda * rows_pb and rows_pb % GR == 0
-    # blocks per tile: keep tiles at <= _TILE_ROWS rows
-    bpt = max(1, min(nlambda, _TILE_ROWS // rows_pb))
-    tile_rows = bpt * rows_pb
-    ntiles = nrows // tile_rows
-
-    def kern(idx_ref, val_ref, out_ref):
-        qi = jax.lax.broadcasted_iota(jnp.int32, (Q, 128), 0)
-        ri = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
-        groups_pb = rows_pb // GR
-        for b in range(bpt):
-            acc = jnp.zeros((Q, R), jnp.float32)
-            for gg in range(groups_pb):
-                Eqs = []
-                Ervs = []
-                for t in range(GR):
-                    j = b * rows_pb + gg * GR + t
-                    sl = pl.ds(j, 1)
-                    c = idx_ref[sl, :]
-                    q = c // R
-                    r = c - q * R
-                    v = val_ref[sl, :]
-                    Eqs.append((qi == q).astype(jnp.float32))
-                    Ervs.append(jnp.where(ri == r, v, 0.0))
-                Eq = jnp.concatenate(Eqs, axis=1)
-                Erv = jnp.concatenate(Ervs, axis=1)
-                acc = acc + jax.lax.dot_general(
-                    Eq, Erv, (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-            out_ref[b] = acc
-
-    return pl.pallas_call(
-        kern,
-        interpret=jax.default_backend() != "tpu",
-        out_shape=jax.ShapeDtypeStruct((nlambda, Q, R), jnp.float32),
-        grid=(ntiles,),
-        in_specs=[
-            pl.BlockSpec((tile_rows, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_rows, 128), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((bpt, Q, R), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )(idx2, val2)
-
-
-def blocked_layout(nlambda: int, ncells: int, n: int):
-    """Geometry of the lambda-blocked tally: returns (Q, R, rows_pb) or
-    None when the layout does not apply (lanes not divisible into
-    128*GR-aligned equal blocks)."""
-    GR = 8
-    if n % nlambda:
-        return None
-    per = n // nlambda
-    if per % (128 * GR):
-        return None
-    R = 128 if ncells <= 128 * 128 else 256
-    Q = _ceil_to(-(-ncells // R), 8)
-    return Q, R, per // 128
-
-
-def binned_add_lm(tally_lm, cell_idx, values, *, nlambda, ncells):
-    """Lambda-major tally update for lambda-BLOCKED lanes.
-
-    tally_lm: flat (nlambda * Q * R) lambda-major padded tally (see
-    `blocked_layout` / `lm_to_cell_major`); cell_idx: (N,) per-lane CELL
-    ids (< ncells; negative = drop), lanes in nlambda contiguous
-    wavelength blocks.  Falls back to a cell-major scatter shape error —
-    callers must check `blocked_layout` first.
-    """
-    lay = blocked_layout(nlambda, ncells, cell_idx.shape[0])
-    assert lay is not None, "lanes not lambda-blocked-alignable"
-    Q, R, rows_pb = lay
-    ok = (cell_idx >= 0) & (cell_idx < ncells)
-    safe = jnp.where(ok, cell_idx, 0)
-    vals = jnp.where(ok, values, 0.0)
-    binned = _mxu_bincount_blocked(safe, vals, nlambda=nlambda, Q=Q, R=R,
-                                   rows_pb=rows_pb)
-    return tally_lm + binned.reshape(-1)
-
-
-def lm_to_cell_major(tally_lm, *, nlambda, ncells):
-    """(nlambda, Q*R) lambda-major padded tally -> flat cell-major
-    (ncells * nlambda) in the engine's labs layout."""
-    t = tally_lm.reshape(nlambda, -1)[:, :ncells]
-    return t.T.reshape(-1)
+    return drop_add(tally, idx.ravel(), values.ravel())

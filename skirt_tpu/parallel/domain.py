@@ -2,16 +2,16 @@
 
 ref: the reference has NO domain decomposition — every MPI rank replicates
 the entire grid and tally tables and only work is split (SURVEY.md §5
-"long-context analog": replicate-everything-everywhere).  The TPU north
-star replaces that with spatial decomposition so the per-device memory
-footprint scales down with the device count.
+"long-context analog": replicate-everything-everywhere).  Spatial
+decomposition makes the per-device memory footprint scale down with the
+device count.
 
-Design (TPU-native): the domain is cut into D contiguous slabs along x,
+Design: the domain is cut into D contiguous slabs along x,
 one per device in a 1-D mesh.  A ray's optical depth is the SUM of its
 per-slab contributions, so instead of migrating packets between owners,
 the packet batch is replicated, every device sweeps only the ray segment
 inside ITS slab (entry/exit of the slab along the ray is arithmetic), and
-one `psum` over ICI yields the exact total.  Per-device traversal work is
+one `psum` yields the exact total.  Per-device traversal work is
 ~1/D of the full path, and the per-slab sweep only touches the slab's
 cells, which is what later lets the density/tally arrays themselves be
 sharded by slab.

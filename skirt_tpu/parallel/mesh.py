@@ -7,9 +7,9 @@ MPI_Allreduce at phase edges (PeerToPeerCommunicator::sum_all,
 SKIRTcore/PeerToPeerCommunicator.cpp:17-77; PanDustSystem::sumResults,
 PanDustSystem.cpp:394-404; Instrument::sumResults, Instrument.cpp:57).
 
-TPU-native equivalent: packets are sharded over a 1-D device mesh via
+Equivalent here: packets are sharded over a 1-D device mesh via
 shard_map; the grid/optical-property arrays are replicated; tallies are
-psum-reduced over ICI at batch end.  This reproduces the reference's
+psum-reduced at batch end.  This reproduces the reference's
 semantics exactly and is the correctness baseline for the later
 domain-decomposed (all_to_all packet migration) mode.
 """

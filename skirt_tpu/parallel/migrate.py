@@ -7,14 +7,12 @@ tau row per event.  This module demonstrates the migration alternative:
 packets are SHARDED (N/D per device), each device integrates kappa*rho
 through its OWN x-slab for the packets it currently holds, and packets
 then hop to the neighbouring slab via `jax.lax.ppermute` — point-to-point
-neighbour traffic that rides single ICI links, instead of the O(D*N)
-all-gather.  A ray's slab sequence is monotonic in x, so D-1 eastbound
+neighbour traffic instead of the O(D*N) all-gather.  A ray's slab sequence is monotonic in x, so D-1 eastbound
 hops (dx > 0) plus D-1 westbound hops (dx < 0) cover every crossing;
 the two direction classes travel in separate ppermute streams.
 
 Per-sweep exchanged payload: 2 * N * 8 words point-to-point (vs D * N
-broadcast words for the all-gather) — the win grows with D and the
-traffic pattern maps onto the torus ICI neighbours.
+broadcast words for the all-gather) — the win grows with D.
 
 Scope: the propagation optical-depth sweep (the per-event collective the
 VERDICT flagged) for table/gridded densities on a uniform Cartesian
@@ -216,8 +214,7 @@ def make_migrating_lifecycle(mesh: Mesh, grid, dust_system, stellar_system,
     total across 3 sweeps, independent of D; the slab engine's
     all-gather + psums move ~(D + 4) * N words per device.  The
     crossover is D ~ 24; below it the all-gather is cheaper in bytes,
-    above it migration wins — and migration traffic rides single
-    neighbour ICI links with no fan-in.
+    above it migration wins, with no fan-in.
 
     Envelope: single dust component, uniform Cartesian (voxel) grid,
     gridded/table density, sampled deposition, distant instruments,

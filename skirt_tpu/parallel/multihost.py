@@ -1,20 +1,16 @@
-"""Multi-host (pod-slice) execution: distributed init + DCN-aware meshes.
+"""Multi-process execution: distributed init + global meshes.
 
 ref: MPIsupport/ProcessManager.cpp — the reference's multi-node model is
 raw MPI behind a static facade that degrades to a no-op single-process
 build without BUILDING_WITH_MPI (:21-188); work is split over ranks and
 tallies are Allreduced at phase edges (SURVEY.md §2.2).
 
-TPU-native equivalent: `jax.distributed` initializes the multi-process
-runtime (one process per host, all devices global), and the lifecycle's
-1-D packet axis simply spans every device in the pod slice — the psum at
-batch end rides ICI within a host and DCN across hosts, inserted by XLA
-from the same `shard_map` program that runs single-host.  For the tally
-collectives (a few MB, once per batch) the DCN hop is negligible next to
-the batch compute, which is why the packet axis does not need to be split
-into explicit ICI/DCN sub-axes; `pod_mesh` still orders devices so that
-ICI neighbors are adjacent (mesh_utils), keeping any future 2-D layouts
-collective-friendly.
+Equivalent here: `jax.distributed` initializes the multi-process runtime
+(one process per host, all devices global), and the lifecycle's 1-D
+packet axis simply spans every device — the psum at batch end is
+inserted by XLA from the same `shard_map` program that runs on one
+process.  The tally collectives are a few MB once per batch, so the
+packet axis needs no split into intra- and inter-host sub-axes.
 
 Mirroring the reference's graceful degradation, `initialize_distributed`
 is a no-op when the environment describes a single process, so the same
@@ -50,11 +46,10 @@ def initialize_distributed(coordinator_address: str | None = None,
         int(os.environ.get("JAX_NUM_PROCESSES", "1"))
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     # cluster auto-detection (jax.distributed's built-in SlurmCluster /
-    # OMPI / TPU-pod detectors) must still fire when only the scheduler's
-    # own env vars are present
+    # OMPI detectors) must still fire when only the scheduler's own env
+    # vars are present
     cluster_size = max(int(os.environ.get("SLURM_NTASKS", "1")),
-                       int(os.environ.get("OMPI_COMM_WORLD_SIZE", "1")),
-                       int(os.environ.get("TPU_WORKER_COUNT", "1") or 1))
+                       int(os.environ.get("OMPI_COMM_WORLD_SIZE", "1")))
     if num <= 1 and addr is None and cluster_size <= 1:
         return False
     kwargs = {}
@@ -71,37 +66,23 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def pod_mesh(axis: str = PACKET_AXIS) -> Mesh:
-    """1-D mesh over ALL devices in the pod slice, ICI-contiguous.
+    """1-D mesh over ALL devices of every process.
 
-    mesh_utils.create_device_mesh orders devices so that physically
-    adjacent chips are adjacent in the mesh; a 1-D axis over that order
-    keeps ring collectives (psum) on ICI hops within each host.
+    The cards of a host are joined all to all, so the mesh follows the
+    algorithm alone: a plain 1-D axis in device order.
     """
-    from jax.experimental import mesh_utils
-    ndev = len(jax.devices())
-    devs = mesh_utils.create_device_mesh((ndev,))
-    return Mesh(devs, (axis,))
+    return Mesh(np.asarray(jax.devices()), (axis,))
 
 
 def host_device_mesh(axis_hosts: str = HOST_AXIS,
                      axis_packets: str = PACKET_AXIS) -> Mesh:
-    """2-D (hosts, local-devices) mesh with the host axis over DCN.
-
-    For layouts that want an explicit DCN axis (e.g. slab decomposition
-    within a host + packet replication across hosts): the outer axis
-    enumerates processes, the inner axis each host's local devices, built
-    with DCN-aware ordering (create_hybrid_device_mesh) when running
-    multi-process.
-    """
-    from jax.experimental import mesh_utils
+    """2-D (hosts, local-devices) mesh: the outer axis enumerates
+    processes, the inner axis each process's local devices (e.g. slab
+    decomposition within a host + packet replication across hosts)."""
+    devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     nproc = jax.process_count()
-    local = len(jax.local_devices())
-    if nproc == 1:
-        devs = mesh_utils.create_device_mesh((1, local))
-    else:
-        devs = mesh_utils.create_hybrid_device_mesh(
-            (1, local), (nproc, 1))
-    return Mesh(devs, (axis_hosts, axis_packets))
+    return Mesh(np.asarray(devs).reshape(nproc, -1),
+                (axis_hosts, axis_packets))
 
 
 def global_batch(mesh: Mesh, ell_local: np.ndarray, L0_local: np.ndarray,

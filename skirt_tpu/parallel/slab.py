@@ -7,8 +7,8 @@ Allreduces the full Labs table).  The north star replaces that with
 spatial decomposition so per-device memory for the density and tally
 tables scales DOWN with the device count.
 
-TPU-native design — replicated packets over sharded cells
----------------------------------------------------------
+Design — replicated packets over sharded cells
+----------------------------------------------
 The classic MPI formulation migrates packets between subdomain owners
 (all-to-all) as rays cross slab boundaries.  On a lockstep SPMD machine
 that formulation buys nothing: with D slabs a migrating packet makes up
@@ -17,7 +17,8 @@ slab it crosses — exactly the same total work as having every device
 sweep ALL packets through ITS OWN slab only.  The replicated-packet
 formulation therefore does identical work with no migration latency, no
 ragged all-to-all, and no load imbalance when packets bunch in dense
-slabs; what moves over ICI per event is only (N,)-sized path integrals:
+slabs; what moves between devices per event is only (N,)-sized path
+integrals:
 
   * the domain is cut into D x-slabs (grid planes), one per device in a
     1-D mesh; the (Ncomp, Ncells) density table and the (Ncells*Nlambda)
@@ -104,7 +105,7 @@ def make_slab_lifecycle(mesh: Mesh, grid, dust_system, stellar_system,
             is_dust_emission=is_dust_emission)
     if exchange == "fused":
         # sharded packets + slab-sharded tables with the per-event
-        # physics in the unchanged fused Pallas table kernel per device
+        # physics in the fused table event per device
         # (panel rows assembled by a ppermute ring sweep) — see
         # parallel/slab_fused.py
         from .slab_fused import (make_slab_fused_lifecycle,
@@ -379,7 +380,7 @@ def make_slab_lifecycle(mesh: Mesh, grid, dust_system, stellar_system,
                                                            kpks)
             kext_rows = rows[-1]
             dtau_r = kext_rows * ds_r
-            cum_r = vt.row_cumsum_mxu(dtau_r)
+            cum_r = vt.row_cumsum(dtau_r)
             tau_slab = cum_r[:, -1]
             cum_slabs, offset, taupath, dirpos = ray_ordered(
                 tau_slab, direction[:, 0])
@@ -427,7 +428,7 @@ def make_slab_lifecycle(mesh: Mesh, grid, dust_system, stellar_system,
                     # attenuation, so these rows are the packet's GLOBAL
                     # absorbed-energy profile restricted to this slab
                     w_r = (1.0 - albedo_rows) * Lint_r
-                    cw = vt.row_cumsum_mxu(w_r)
+                    cw = vt.row_cumsum(w_r)
                     W_slab = cw[:, -1]
                     cumW, offW, Wtot, _ = ray_ordered(W_slab,
                                                       direction[:, 0])

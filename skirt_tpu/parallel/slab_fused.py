@@ -1,12 +1,12 @@
-"""Fused Pallas table kernel composed with slab sharding (VERDICT r4 #3).
+"""The fused table event composed with slab sharding.
 
 ref: the reference composes its two parallelism axes everywhere — every
 thread-pool loop runs under MPI (SKIRTcore/Parallel.cpp:76-177 +
-ProcessAssigner.hpp:25-97).  Here the composition is TPU-native: packets
-are SHARDED (N/D lanes per device), the (Ncells) density table and the
-(Ncells*Nlambda) absorption tally are SHARDED by x-slab, and the per-event
-physics still runs in the unchanged fused Pallas megakernel
-(engine/fused_table._build_kernel) on each device's resident lanes.
+ProcessAssigner.hpp:25-97).  Here packets are SHARDED (N/D lanes per
+device), the (Ncells) density table and the (Ncells*Nlambda) absorption
+tally are SHARDED by x-slab, and the per-event physics runs in the same
+table event as the single-device engine (engine/fused_table.make_event,
+engine/fused_table_poly.make_event) on each device's resident lanes.
 
 The composition trick: the fused kernel consumes a COMPLETE per-lane
 (P,) panel record of kappa*rho along the global ray — but the density
@@ -20,7 +20,7 @@ a single device — same panel grid, same inversion, same RNG stream
 shape.  Per-link payload per sweep: (P + 7) * N/D words, independent of
 D (the allgather engine's per-device volume grows with D).
 
-After the kernel, a second ring sweep carries (new position, deposit
+After the event, a second ring sweep carries (new position, deposit
 bin/value, per-leader peel accumulators): each visited device adds its
 slab-clipped panel quadrature toward every leader direction and CLAIMS
 deposits whose global bins land in its labs shard — absorption writes
@@ -44,7 +44,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .slab import SLAB_AXIS, _BIG
-from ..engine.fused_table import _build_kernel
+from ..engine import fused_table, fused_table_poly
 from ..engine.fused import _group_leaders
 from ..ops import binned_add
 
@@ -57,8 +57,6 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
 
     ell/L0 are sharded along the packet axis (N/D lanes per device).
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
     from jax.sharding import NamedSharding
 
     from .. import rng
@@ -90,10 +88,8 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     nlead = len(leaders)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
-    interpret = jax.default_backend() != "tpu"
     mix = ds.components[0].mix
     iter_cap = int(options.max_scatt_events) * K
 
@@ -103,26 +99,18 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
     lo = np.asarray(grid._lo, np.float64)
     dxv = np.asarray(grid._dx, np.float64)
 
-    # the kernel is built against the GLOBAL grid: its arithmetic locate
+    # the event is built against the GLOBAL grid: its arithmetic locate
     # yields GLOBAL deposit bins (cell*nlambda + ell), which the deposit
     # ring sweep routes to the owning slab shard
     multi = ds.ncomp > 1
     H = ds.ncomp
-    if multi:
-        # staged (kext*rho, ksca*rho) row pairs -> per-panel albedo
-        # blending in VMEM; component selection + blended peel move
-        # XLA-side with a psum to publish the interaction cell's
-        # per-component densities from the owning shard
-        from ..engine.fused_table import _build_kernel_multi
-        kern = _build_kernel_multi(grid, options, nlambda, npanels,
-                                   want_labs)
-        n_uniform = 3
-        n_state = 13
-    else:
-        kern = _build_kernel(grid, options, nlambda, npanels, want_labs,
-                             arith_locate=True)
-        n_uniform = 5
-        n_state = 15
+    # multi: staged (kext*rho, ksca*rho) row pairs -> per-panel albedo
+    # blending in the event; component selection + blended peel move
+    # XLA-side after a ring lap that fetches the interaction cell's
+    # per-component densities from the owning shard
+    event = fused_table.make_event(grid, options, nlambda, npanels,
+                                   want_labs, True, multi)
+    n_uniform = 3 if multi else 5
 
     fwd = [(i, (i + 1) % D) for i in range(D)]
 
@@ -262,54 +250,6 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
                 st = hopf([p_c, k_c, db_c, dv_c] + new_accs)
             return st[4:], labs_c
 
-        # ---- kernel packing (fused_table call pattern) ------------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-        R = npad // 128
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        def call_kernel(u, kr, state, ks=None):
-            tr = min(tile_rows, R)
-
-            def blk():
-                return pl.BlockSpec((tr, 128), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)
-
-            if multi:
-                # pos3, L, alive, cell (+ deposit bins/values)
-                out_dtypes = ([jnp.float32] * 4 + [jnp.int32] * 2
-                              + ([jnp.int32, jnp.float32] if want_labs
-                                 else []))
-            else:
-                out_dtypes = ([jnp.float32] * 7 + [jnp.int32] * 2
-                              + ([jnp.int32, jnp.float32] if want_labs
-                                 else []))
-            u_spec = pl.BlockSpec((n_uniform, tr, 128),
-                                  lambda i: (0, i, 0),
-                                  memory_space=pltpu.VMEM)
-            kr_spec = pl.BlockSpec((npanels, tr, 128),
-                                   lambda i: (0, i, 0),
-                                   memory_space=pltpu.VMEM)
-            ins_args = ([u, kr, ks] if multi else [u, kr]) + list(state)
-            return pl.pallas_call(
-                kern,
-                grid=(R // tr,),
-                in_specs=[u_spec, kr_spec]
-                + ([kr_spec] if multi else [])
-                + [blk() for _ in range(n_state)],
-                out_specs=tuple(blk() for _ in range(len(out_dtypes))),
-                out_shape=tuple(jax.ShapeDtypeStruct((R, 128), dt)
-                                for dt in out_dtypes),
-                interpret=interpret,
-            )(*ins_args)
-
         # ---- launch (per-device shard, device-folded RNG) ---------------
         k_launch, k_cycle = jax.random.split(rng.event_key(kdev, 1))
         pos, direction, L, _comp = stellar_system.launch(k_launch, ell,
@@ -323,8 +263,6 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
         kext_pk = kext_l[0]
         albedo_pk = ksca_l[0] / jnp.maximum(kext_pk, 1e-37)
         g_pk = jnp.asarray(np.asarray(mix.g, np.float32))[ell]
-        l0_p = pack(L0, 0.0)
-        ell_p = pack(ell)
 
         ins_t = [ins.zero_tallies() for ins in instruments]
         labs_loc = jnp.zeros((cells_per_slab * nlambda,), jnp.float32) \
@@ -352,36 +290,30 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
             s_ns, s_alive = st["ns"], st["alive"]
             labs_c, ins_c = st["labs"], st["ins"]
             kit = rng.event_key(k_cycle, st["it"])
-            u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
-                                            jnp.float32),
-                         1e-7, 1.0 - 1e-7)
+            us = list(jnp.clip(jax.random.uniform(kit, (n_uniform, n),
+                                                  jnp.float32),
+                               1e-7, 1.0 - 1e-7))
 
             # -- sweep F: assemble the full panel rows over the ring ------
-            def tiles(rows):
-                return jnp.moveaxis(
-                    jnp.pad(rows, ((0, npad - n), (0, 0)))
-                    if npad > n else rows, 1, 0).reshape(npanels, R, 128)
+            def panels(rows):                      # (n, P) -> P x (n,)
+                return list(jnp.moveaxis(rows, 1, 0))
 
             wv_h = None
             if multi:
                 kr_rows, ks_rows, t0g, delta = fill_rows(
                     s_pos, s_dir, kpk_mat, want_sca=True)
-                kstate = (pack(s_pos[:, 0]), pack(s_pos[:, 1]),
-                          pack(s_pos[:, 2]),
-                          pack(s_dir[:, 0]), pack(s_dir[:, 1]),
-                          pack(s_dir[:, 2], 1.0),
-                          pack(s_L), pack(s_alive.astype(jnp.int32)),
-                          pack(s_ns), ell_p, l0_p, pack(t0g),
-                          pack(delta))
-                outs = call_kernel(u, tiles(kr_rows), kstate,
-                                   ks=tiles(ks_rows))
-                pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                     unpack(outs[2])], axis=-1)
-                L_new = unpack(outs[3])
-                alive_new = unpack(outs[4]) != 0
-                cell_at = unpack(outs[5])
-                dep_bin = unpack(outs[6]) if want_labs else no_dep
-                dep_val = unpack(outs[7]) if want_labs \
+                kstate = (s_pos[:, 0], s_pos[:, 1], s_pos[:, 2],
+                          s_dir[:, 0], s_dir[:, 1], s_dir[:, 2],
+                          s_L, s_alive.astype(jnp.int32), s_ns, ell, L0,
+                          t0g, delta)
+                outs = event(us, panels(kr_rows), kstate,
+                             ks=panels(ks_rows))
+                pos_new = jnp.stack(outs[0:3], axis=-1)
+                L_new = outs[3]
+                alive_new = outs[4] != 0
+                cell_at = outs[5]
+                dep_bin = outs[6] if want_labs else no_dep
+                dep_val = outs[7] if want_labs \
                     else jnp.zeros(n, jnp.float32)
 
                 # per-component densities at the interaction cell:
@@ -429,24 +361,19 @@ def make_slab_fused_lifecycle(mesh: Mesh, grid, dust_system,
                 ns_new = jnp.where(alive_new, s_ns + 1, s_ns)
             else:
                 rows, t0g, delta = fill_rows(s_pos, s_dir, kpk_ext)
-                kstate = (pack(s_pos[:, 0]), pack(s_pos[:, 1]),
-                          pack(s_pos[:, 2]),
-                          pack(s_dir[:, 0]), pack(s_dir[:, 1]),
-                          pack(s_dir[:, 2], 1.0),
-                          pack(s_L), pack(s_alive.astype(jnp.int32)),
-                          pack(s_ns), ell_p, l0_p, pack(t0g),
-                          pack(delta), pack(albedo_pk), pack(g_pk))
-                outs = call_kernel(u, tiles(rows), kstate)
+                kstate = (s_pos[:, 0], s_pos[:, 1], s_pos[:, 2],
+                          s_dir[:, 0], s_dir[:, 1], s_dir[:, 2],
+                          s_L, s_alive.astype(jnp.int32), s_ns, ell, L0,
+                          t0g, delta, albedo_pk, g_pk)
+                outs = event(us, panels(rows), kstate)
 
-                pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                     unpack(outs[2])], axis=-1)
-                dir_new = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                     unpack(outs[5])], axis=-1)
-                L_new = unpack(outs[6])
-                alive_new = unpack(outs[7]) != 0
-                ns_new = unpack(outs[8])
-                dep_bin = unpack(outs[9]) if want_labs else no_dep
-                dep_val = unpack(outs[10]) if want_labs \
+                pos_new = jnp.stack(outs[0:3], axis=-1)
+                dir_new = jnp.stack(outs[3:6], axis=-1)
+                L_new = outs[6]
+                alive_new = outs[7] != 0
+                ns_new = outs[8]
+                dep_bin = outs[9] if want_labs else no_dep
+                dep_val = outs[10] if want_labs \
                     else jnp.zeros(n, jnp.float32)
 
             # -- XLA-side relaunch (refill) -------------------------------
@@ -550,12 +477,9 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
     ell is ignored (poly contract); L0 is (N, nlambda) nominal rows,
     sharded along the lane axis.
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
     from jax.sharding import NamedSharding
 
     from .. import rng
-    from ..engine.fused_table_poly import _build_kernel as _build_poly
 
     ds = dust_system
     D = int(mesh.devices.size)
@@ -588,11 +512,8 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
     want_labs = bool(options.store_absorption)
     leaders, lead_of = _group_leaders(instruments)
     nlead = len(leaders)
-    tile_rows = int(getattr(options, "fused_tile_rows", 32))
-    tile_rows = min(tile_rows, max(8, (1024 // W) // 8 * 8))
     refill = options.refill_batches > 1
     K = int(options.refill_batches) if refill else 1
-    interpret = jax.default_backend() != "tpu"
     mix = ds.components[0].mix
     iter_cap = int(options.max_scatt_events) * K
 
@@ -605,9 +526,10 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
     kext_w = [float(np.asarray(ds.kappaext)[0, w]) for w in range(W)]
     albedo_w = [float(np.asarray(mix.albedo)[w]) for w in range(W)]
     g_w = [float(np.asarray(mix.g)[w]) for w in range(W)]
-    kern, n_uniform = _build_poly(grid, options, W, npanels, want_labs,
-                                  kext_w, albedo_w, g_w,
-                                  arith_locate=True)
+    event, n_uniform = fused_table_poly.make_event(
+        grid, options, W, npanels, want_labs,
+        [np.asarray(v, np.float32) for v in (kext_w, albedo_w, g_w)],
+        arith_locate=True)
 
     fwd = [(i, (i + 1) % D) for i in range(D)]
 
@@ -714,65 +636,6 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
                 st = hopf([p_c, db_c, dv_c] + new_accs)
             return st[3:], labs_c
 
-        # ---- kernel packing (fused_table_poly call pattern) -------------
-        tile = tile_rows * 128
-        npad = -(-max(n, tile) // tile) * tile
-        R = npad // 128
-
-        def pack(a, fill=0.0):
-            if npad > n:
-                a = jnp.pad(a, (0, npad - n), constant_values=fill)
-            return a.reshape(-1, 128)
-
-        def packW(a):
-            if npad > n:
-                a = jnp.pad(a, ((0, 0), (0, npad - n)))
-            return a.reshape(W, -1, 128)
-
-        def unpack(a):
-            return a.reshape(-1)[:n]
-
-        oc = jnp.asarray(np.broadcast_to(
-            np.stack([np.asarray(kext_w, np.float32),
-                      np.asarray(albedo_w, np.float32),
-                      np.asarray(g_w, np.float32)])[:, :, None],
-            (3, W, 128)).copy())
-
-        def call_kernel(u, r, Lw, l0w, state):
-            def blk():
-                return pl.BlockSpec((tile_rows, 128), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)
-
-            def blkW(lead):
-                return pl.BlockSpec((lead, tile_rows, 128),
-                                    lambda i: (0, i, 0),
-                                    memory_space=pltpu.VMEM)
-
-            oc_spec = pl.BlockSpec((3, W, 128), lambda i: (0, 0, 0),
-                                   memory_space=pltpu.VMEM)
-            out_dtypes = ([jnp.float32] * 6 + [jnp.int32] * 2)
-            out_shapes = [jax.ShapeDtypeStruct((R, 128), dt)
-                          for dt in out_dtypes]
-            out_specs = [blk() for _ in out_dtypes]
-            out_shapes += [jax.ShapeDtypeStruct((W, R, 128),
-                                                jnp.float32)] * 2
-            out_specs += [blkW(W)] * 2
-            if want_labs:
-                out_shapes += [jax.ShapeDtypeStruct((R, 128), jnp.int32),
-                               jax.ShapeDtypeStruct((R, 128),
-                                                    jnp.float32)]
-                out_specs += [blk(), blk()]
-            return pl.pallas_call(
-                kern,
-                grid=(R // tile_rows,),
-                in_specs=[blkW(n_uniform), blkW(npanels), oc_spec,
-                          blkW(W), blkW(W)]
-                + [blk() for _ in range(10)],
-                out_specs=tuple(out_specs),
-                out_shape=tuple(out_shapes),
-                interpret=interpret,
-            )(u, r, oc, Lw, l0w, *state)
-
         # ---- launch -----------------------------------------------------
         k_launch, k_cycle = jax.random.split(rng.event_key(kdev, 1))
         ell0 = jnp.zeros(n, jnp.int32)
@@ -780,7 +643,7 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
             k_launch, ell0, jnp.ones(n, jnp.float32))
         L = L0.T                                     # (W, N/D)
         alive = jnp.any(L > 0, axis=0)
-        l0_p = packW(L0.T)
+        l0_w = L0.T
         wls = np.arange(W, dtype=np.int32)
         kext_col = jnp.asarray(np.asarray(kext_w, np.float32))[:, None]
         g_col = np.asarray(g_w, np.float32)[:, None]
@@ -809,31 +672,24 @@ def make_slab_fused_poly_lifecycle(mesh: Mesh, grid, dust_system,
         def body(st):
             s_pos, s_dir = st["pos"], st["dir"]
             kit = rng.event_key(k_cycle, st["it"])
-            u = jnp.clip(jax.random.uniform(kit, (n_uniform, R, 128),
+            u = jnp.clip(jax.random.uniform(kit, (n_uniform, n),
                                             jnp.float32),
                          1e-7, 1.0 - 1e-7)
             rows, t0g, delta = fill_rows(s_pos, s_dir)
-            r = jnp.moveaxis(
-                jnp.pad(rows, ((0, npad - n), (0, 0)))
-                if npad > n else rows, 1, 0).reshape(npanels, R, 128)
-            kstate = (pack(s_pos[:, 0]), pack(s_pos[:, 1]),
-                      pack(s_pos[:, 2]),
-                      pack(s_dir[:, 0]), pack(s_dir[:, 1]),
-                      pack(s_dir[:, 2], 1.0),
-                      pack(st["alive"].astype(jnp.int32)),
-                      pack(st["ns"]), pack(t0g), pack(delta))
-            outs = call_kernel(u, r, packW(st["L"]), l0_p, kstate)
+            kstate = (s_pos[:, 0], s_pos[:, 1], s_pos[:, 2],
+                      s_dir[:, 0], s_dir[:, 1], s_dir[:, 2],
+                      st["alive"].astype(jnp.int32), st["ns"], t0g, delta)
+            outs = event(list(u), list(jnp.moveaxis(rows, 1, 0)), st["L"],
+                         l0_w, kstate)
 
-            pos_new = jnp.stack([unpack(outs[0]), unpack(outs[1]),
-                                 unpack(outs[2])], axis=-1)
-            dir_new = jnp.stack([unpack(outs[3]), unpack(outs[4]),
-                                 unpack(outs[5])], axis=-1)
-            alive_new = unpack(outs[6]) != 0
-            ns_new = unpack(outs[7])
-            Ln = outs[8].reshape(W, -1)[:, :n]
-            Lp = outs[9].reshape(W, -1)[:, :n]
-            dep_bin = unpack(outs[10]) if want_labs else no_dep
-            dep_val = unpack(outs[11]) if want_labs \
+            pos_new = jnp.stack(outs[0:3], axis=-1)
+            dir_new = jnp.stack(outs[3:6], axis=-1)
+            alive_new = outs[6] != 0
+            ns_new = outs[7]
+            Ln = outs[8]
+            Lp = outs[9]
+            dep_bin = outs[10] if want_labs else no_dep
+            dep_val = outs[11] if want_labs \
                 else jnp.zeros(n, jnp.float32)
 
             bc = st["bc"]

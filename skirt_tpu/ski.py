@@ -9,7 +9,7 @@ are objects, lowercase elements are compound properties with a `type`
 attribute, scalar properties are attributes with unit-tagged values.
 
 This loader maps the reference's class names and property vocabulary onto
-skirt_tpu components, so existing ski files drive the TPU engine directly.
+skirt_tpu components, so existing ski files drive the engine directly.
 Unsupported classes raise a clear error naming the ski element.
 """
 
@@ -708,7 +708,7 @@ def build_stellar_component(node: Node, wg):
     if n == "SPHStellarComp":
         # ref: SPHStellarComp.cpp:135-183 — text file x,y,z,h (pc) + SED-
         # family parameter columns; per-λ luminosity CDF over particles.
-        # Returns a *list* of spectrally-binned components (TPU re-design:
+        # Returns a *list* of spectrally-binned components (batched re-design:
         # sources/stellar.py::sph_stellar_components).
         from .sources.sed_family import (BruzualCharlotSEDFamily,
                                          MappingsSEDFamily)
@@ -800,7 +800,7 @@ def build_simulation(sim_node: Node, *, out_dir: str = ".",
                      fast_path: bool = False, use_mesh=None):
     """Construct an OligoSimulation / PanSimulation from a parsed ski tree.
 
-    fast_path=True opts in to the TPU-native estimators when the model
+    fast_path=True opts in to the fast estimators when the model
     allows them (all dust geometries analytic): density_mode='analytic' +
     deposition='sampled' — the reference-exact gridded/path estimators
     remain the default.

@@ -6,7 +6,7 @@ redshift); SKIRTcore/MappingsSEDFamily.cpp (SFR, Z, logC, pressure, f_PDR
 -> MAPPINGS III starburst template, Groves et al. 2008) and
 SKIRTcore/BruzualCharlotSEDFamily.cpp (Z, age -> BC03 SSP).
 
-TPU re-design: instead of evaluating one spectrum per launched packet the
+Batched re-design: instead of evaluating one spectrum per launched packet the
 family evaluates all particles at once host-side (vectorized trilinear
 interpolation over the library grid) during setup, and the resulting
 per-particle luminosity matrix is spectrally binned into a handful of

@@ -1,6 +1,6 @@
 """Quantity-aware unit system.
 
-TPU-native re-design of the reference unit layer (ref: SKIRTcore/Units.hpp:35-549,
+Batched re-design of the reference unit layer (ref: SKIRTcore/Units.hpp:35-549,
 SIUnits/StellarUnits/ExtragalacticUnits): all internal computation is in SI
 (m, kg, s, W); this module converts at the I/O boundary only.  Three unit
 styles mirror the reference's SIUnits / StellarUnits / ExtragalacticUnits,

@@ -7,7 +7,7 @@ open/save of ski/fski hierarchies.  The Qt widget panes map here to
 console panes; the state machine semantics (canAdvance/canRetreat/
 advance/retreat/isDirty/filepath) are preserved.
 
-TPU-repo design: the engine replays a recorded answer log through a
+Design: the engine replays a recorded answer log through a
 pure construction program to find the current pane — retreat is simply
 popping the last answer, so navigation can never desynchronize from the
 tree under construction.  Injectable streams make it scriptable and

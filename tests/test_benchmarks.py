@@ -384,7 +384,7 @@ class TestCrossEstimator:
     """gridded+path (reference-exact) vs analytic+sampled vs fused: three
     structurally different estimator implementations must agree within MC
     noise on the same physical model (the CPU-sized version of the
-    1e7-packet TPU A/B documented in BASELINE.md)."""
+    1e7-packet A/B documented in BASELINE.md)."""
 
     @pytest.mark.slow
     def test_three_way_agreement(self):

@@ -1,9 +1,9 @@
-"""Fused event-megakernel (engine/fused.py) parity with the XLA lifecycle.
+"""Fused event body (engine/fused.py) parity with the XLA lifecycle.
 
-Runs the Pallas kernel in interpreter mode on CPU.  The two engines share
+The fused body runs as plain XLA on the CPU.  The two engines share
 the launch + emission-peel-off stream (identical keys), so the direct flux
 matches tightly; scattered flux and absorption differ only by the event
-RNG streams (in-kernel sampling order), bounded by MC noise.
+RNG streams (in-body sampling order), bounded by MC noise.
 """
 
 import sys

@@ -1,9 +1,8 @@
-"""Fused TABLE-mode event kernel (engine/fused_table.py) parity.
+"""Fused TABLE-mode event body (engine/fused_table.py) parity.
 
 The voxelized octree torus traced through (a) the unfused XLA table path
 and (b) the fused table kernel must agree within MC noise (the two share
-the launch/emission-peel stream; event streams differ).  Runs the Pallas
-kernel in interpreter mode on CPU.
+the launch/emission-peel stream; event streams differ).
 """
 
 import numpy as np
@@ -171,7 +170,7 @@ class TestExactPeel:
 
 class TestMultiComponentFused:
     """Multi-component (graphite+silicate class) models on the fused
-    table kernel (VERDICT r3 #5): per-panel albedo blending in VMEM,
+    table event (VERDICT r3 #5): per-panel albedo blending in the body,
     XLA-side component selection + blended peel.  Must match the
     unfused multi-component table path within MC noise.
     ref: PanDustSystem.cpp:304-316 (per-component tallies)."""

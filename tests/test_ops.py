@@ -1,12 +1,10 @@
-"""ops kernels: binned scatter-add (MXU contraction) + drop semantics."""
+"""Tally primitives: binned_add / drop_add drop and accumulate semantics."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from skirt_tpu.ops import binned_add, drop_add
-import skirt_tpu.ops.binned as B
 
 
 class TestDropAdd:
@@ -17,92 +15,31 @@ class TestDropAdd:
         assert out.tolist() == [1.0, 0, 0, 0, 0, 2.0]
 
 
-class TestMxuBincountInterpret:
-    """The Pallas kernel itself, run in interpreter mode (CI has no TPU)."""
-
-    def test_matches_numpy(self, monkeypatch):
-        from jax.experimental import pallas as pl
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k["interpret"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(pl, "pallas_call", interp)
-
-        nbins = 4096
-        R = 128
-        Q = B._ceil_to(-(-nbins // R), 8)
-        n = B._TILE_ROWS * 128 * 2
-        rng_np = np.random.default_rng(0)
-        idx = jnp.asarray(rng_np.integers(0, nbins, n), jnp.int32)
-        val = jnp.asarray(rng_np.random(n), jnp.float32)
-        got = np.asarray(B._mxu_bincount(idx, val, nbins_padded=Q * R,
-                                         R=R, Q=Q))[:nbins]
-        want = np.zeros(nbins, np.float32)
-        np.add.at(want, np.asarray(idx), np.asarray(val))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-    def test_padding_and_offsets(self, monkeypatch):
-        from jax.experimental import pallas as pl
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k["interpret"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(pl, "pallas_call", interp)
-        # non-tile-multiple n exercises the zero-padding path
-        nbins = 300
-        R = 128
-        Q = B._ceil_to(-(-nbins // R), 8)
-        n = 1000
-        idx = jnp.asarray(np.arange(n) % nbins, jnp.int32)
-        val = jnp.ones(n, jnp.float32)
-        got = np.asarray(B._mxu_bincount(idx, val, nbins_padded=Q * R,
-                                         R=R, Q=Q))[:nbins]
-        want = np.bincount(np.arange(n) % nbins, minlength=nbins)
-        np.testing.assert_allclose(got, want)
+# (indices, values, expected tally of length 6)
+_CASES = {
+    "minus_one_dropped": ([0, -1, 2], [1.0, 5.0, 2.0],
+                          [1, 0, 2, 0, 0, 0]),
+    "out_of_range_dropped": ([5, 6, 100], [1.0, 7.0, 9.0],
+                             [0, 0, 0, 0, 0, 1]),
+    "duplicates_accumulate": ([3, 3, 3, 1], [1.0, 2.0, 4.0, 0.5],
+                              [0, 0.5, 0, 7, 0, 0]),
+    "two_d_indices": ([[0, 1, -1], [1, 6, 5]], [[1.0, 2.0, 3.0],
+                                                [4.0, 5.0, 6.0]],
+                      [1, 6, 0, 0, 0, 6]),
+}
 
 
-class TestBlockedTally:
-    """Lambda-blocked MXU tally (ops/binned.py binned_add_lm): the
-    contraction cost is Ncells MACs/element independent of nlambda —
-    the fix for the (Ncells x nlambda)-bin labs wall at production
-    wavelength counts."""
+@pytest.mark.parametrize("fn", [drop_add, binned_add],
+                         ids=["drop_add", "binned_add"])
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_scatter_semantics(fn, case):
+    idx, val, want = _CASES[case]
+    out = fn(jnp.zeros(6, jnp.float32), jnp.asarray(idx, jnp.int32),
+             jnp.asarray(val, jnp.float32))
+    np.testing.assert_allclose(np.asarray(out), want)
 
-    def test_matches_bincount(self):
-        import numpy as np
-        import jax.numpy as jnp
-        from skirt_tpu.ops.binned import (binned_add_lm, blocked_layout,
-                                          lm_to_cell_major)
 
-        nl, ncells = 8, 1000
-        n = nl * 128 * 8 * 2          # 2 groups of 8 rows per block
-        lay = blocked_layout(nl, ncells, n)
-        assert lay is not None
-        Q, R, rows_pb = lay
-        rs = np.random.default_rng(5)
-        cells = rs.integers(-1, ncells, size=n).astype(np.int32)
-        vals = rs.uniform(0, 1, size=n).astype(np.float32)
-        tally = jnp.zeros((nl * Q * R,), jnp.float32)
-        out = binned_add_lm(tally, jnp.asarray(cells), jnp.asarray(vals),
-                            nlambda=nl, ncells=ncells)
-        cm = np.asarray(lm_to_cell_major(out, nlambda=nl, ncells=ncells))
-
-        # reference: numpy bincount per lambda block
-        ref = np.zeros((ncells, nl))
-        per = n // nl
-        for b in range(nl):
-            c = cells[b * per:(b + 1) * per]
-            v = vals[b * per:(b + 1) * per]
-            ok = c >= 0
-            np.add.at(ref[:, b], c[ok], v[ok])
-        np.testing.assert_allclose(cm.reshape(ncells, nl), ref,
-                                   rtol=2e-2, atol=1e-5)
-
-    def test_layout_gates(self):
-        from skirt_tpu.ops.binned import blocked_layout
-        assert blocked_layout(8, 1000, 8 * 1024) is not None
-        assert blocked_layout(8, 1000, 8 * 1024 + 1) is None
-        assert blocked_layout(7, 1000, 8 * 1024) is None
+def test_binned_add_accumulates_onto_existing_tally():
+    t = jnp.arange(4, dtype=jnp.float32)
+    out = binned_add(t, jnp.asarray([1, -1, 3]), jnp.asarray([1.0, 1.0, 2.0]))
+    np.testing.assert_allclose(np.asarray(out), [0, 2, 2, 5])

@@ -173,7 +173,7 @@ class TestMultiComponent:
 
 
 class TestPanAnalyticFastPath:
-    """Pan dust-emission loop with the TPU fast estimators: analytic
+    """Pan dust-emission loop with the fast estimators: analytic
     midpoint densities + sampled deposition through every phase (stellar,
     dust emission with cell-launch launch_fn)."""
 
@@ -203,7 +203,7 @@ class TestPanAnalyticFastPath:
 
 
 class TestPanFused:
-    """Fused Pallas megakernel through every pan phase (stellar + dust
+    """Fused event body through every pan phase (stellar + dust
     emission launch_fn); refill stays stellar-only and is stripped from
     the dust variants automatically."""
 
@@ -225,6 +225,27 @@ class TestPanFused:
                             quadrature_panels=8, max_scatt_events=24,
                             refill_batches=2)
         assert sim._run_dust_emit is not None
+
+    @pytest.mark.parametrize("density_mode,voxelize,fused,dust_refill", [
+        ("analytic", None, True, 1),      # analytic body: refill stripped
+        ("gridded", None, False, 1),      # falls back to the vector path
+        ("gridded", "table", True, 2),    # table body keeps refill
+    ])
+    def test_dust_batches_follow_the_options_used(self, density_mode,
+                                                  voxelize, fused,
+                                                  dust_refill):
+        sim = build_pan_sim(tau=1.0, packets=1024, density_mode=density_mode,
+                            deposition="sampled", fused=True,
+                            quadrature_panels=8, max_scatt_events=24,
+                            refill_batches=2, voxelize=voxelize)
+        assert sim.options.fused is fused
+        assert sim._dust_refill == dust_refill
+        # each dust lane launches _dust_refill packets: the batches cover
+        # the requested packets per wavelength, and no more than a batch
+        # of lanes over
+        lanes = sum(c for *_, c in sim._dust_batches(
+            1000, np.ones(sim.nlambda)))
+        assert lanes == -(-1000 // dust_refill)
 
 
 class TestPanPoly:

@@ -162,7 +162,7 @@ class TestScatteredTallies:
     with the device count, totals equal the replicated psum exactly.
 
     ref: the reference replicates Labs on every rank (SURVEY.md §5); the
-    psum_scatter variant is the TPU-native memory-scaling alternative."""
+    psum_scatter variant is the memory-scaling alternative."""
 
     def test_matches_replicated(self):
         import sys

@@ -163,7 +163,7 @@ class TestChandrasekharMilne:
         # this is a catastrophic-regression tripwire (it caught a
         # +0.42 face-on Q from the phi-sampler Newton bias and a +50
         # outlier from unclamped Mueller ratios); the tight-statistics
-        # pin is experiments/milne_chandrasekhar.py on TPU:
+        # pin is experiments/milne_chandrasekhar.py on the GPU:
         # p(mu=0.1) = 0.122 +- 0.039 at 3.1M packets (Chandrasekhar
         # ~0.10), p(mu=1) consistent with 0.
         assert np.isfinite(p).all() if hasattr(np, "isfinite") else True

@@ -1,9 +1,8 @@
-"""Polychromatic fused table kernel (engine/fused_table_poly.py) parity.
+"""Polychromatic fused table event (engine/fused_table_poly.py) parity.
 
 Each lane carries ALL wavelengths on one mixture-sampled geometric path;
 fluxes and absorption must agree with the monochromatic fused table
-path within MC noise at MATCHED per-wavelength launch totals.  Runs the
-Pallas kernel in interpreter mode on CPU.
+path within MC noise at MATCHED per-wavelength launch totals.
 """
 
 import numpy as np
@@ -306,7 +305,7 @@ class TestPolyWide:
 
 class TestPolyMulti:
     """Multi-component polychromatic lanes (round 5): H raw rho row sets
-    staged per event, per-(component, wavelength) blending in VMEM, the
+    staged per event, per-(component, wavelength) blending in the body, the
     interaction sampled from the uniform-driver mixture of composite-
     biased forced pdfs in path length.  Parity vs the monochromatic
     multi-component fused kernel at matched per-wavelength totals."""

@@ -1,12 +1,11 @@
-"""Fused Pallas table kernel composed with slab sharding
+"""Fused table event composed with slab sharding
 (parallel/slab_fused.py, VERDICT r4 #3).
 
 Packets sharded N/D per device, rho/labs slab-sharded, the per-event
-physics in the UNCHANGED fused table megakernel per device; the panel
+physics in the same fused table event per device; the panel
 rows are assembled by a ppermute ring sweep.  Parity vs the
 single-device fused table engine within MC tolerance (per-device RNG
-streams differ).  Runs on the 8-virtual-CPU mesh (kernel in interpreter
-mode).
+streams differ).  Runs on the 8-virtual-CPU mesh.
 """
 
 import numpy as np

@@ -139,7 +139,7 @@ class TestNativeBuilder:
 
 
 class TestDevicePointLocation:
-    """Device locate_batched (MXU scan + block-candidate schemes)."""
+    """Device locate_batched (matmul scan + block-candidate schemes)."""
 
     def test_scan_matches_kdtree(self):
         g = make_grid(n_sites=300)
